@@ -87,13 +87,17 @@ class NormalizedEnv(TaskEnv):
             state, obs = self._norm_obs(state, obs)
         return state, obs
 
-    def step(self, state, action, task):
+    def scale_action(self, action):
+        """The policy's action in +-normalization_scale mapped affinely to
+        the wrapped env's bounds, and clipped to them."""
         lb = self.env.action_space.low_array(action.device)
         ub = self.env.action_space.high_array(action.device)
         scale = self.normalization_scale
         scaled = lb + (action + scale) * (ub - lb) / (2.0 * scale)
-        scaled = torch.minimum(torch.maximum(scaled, lb), ub)
+        return torch.minimum(torch.maximum(scaled, lb), ub)
 
+    def step(self, state, action, task):
+        scaled = self.scale_action(action)
         inner_state = state["inner"] if self._stats else state
         inner_state, obs, reward, done, info = self.env.step(
             inner_state, scaled, task)

@@ -9,26 +9,19 @@ of (params, goals, obs0, noise).
 On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
 it runs ``pointmass_rollout_plain``, the same arithmetic in PyTorch tensor
 code. The CUDA source is compiled with ``nvcc`` into a shared library with
-a plain C entry point at the first CUDA call (never at import), into
-``promp_tpu_torch/_build/`` under a name that hashes the source and flags,
-and loaded with ``ctypes``.
+a plain C entry point at the first CUDA call (never at import) and loaded
+with ``ctypes`` (ops/nvcc_build.py).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "rollout_kernel.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from promp_tpu_torch.ops import nvcc_build
+
+SOURCE = "rollout_kernel.cu"
+NVCC_FLAGS = nvcc_build.BASE_FLAGS
 
 SCALE = 10.0       # NormalizedEnv normalization_scale
 ACT_BOUND = 0.2    # MetaPointEnvCorner action bound
@@ -43,51 +36,20 @@ PARAM_KEYS = ("mean_network/hidden_0/kernel", "mean_network/hidden_0/bias",
 _lib = None
 
 
-def find_nvcc():
-    """nvcc from $CUDA_HOME/bin, /usr/local/cuda/bin or PATH; raises with
-    the places searched when there is none."""
-    searched = []
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root:
-            path = os.path.join(root, "bin", "nvcc")
-            searched.append(path)
-            if os.access(path, os.X_OK):
-                return path
-    on_path = shutil.which("nvcc")
-    searched.append("PATH")
-    if on_path:
-        return on_path
-    raise RuntimeError("nvcc not found; searched: " + ", ".join(searched))
+def build_job():
+    """(name, source, flags) of K1's library, for ``nvcc_build.build_all``."""
+    return ("rollout_kernel", nvcc_build.read_source(SOURCE), NVCC_FLAGS)
 
 
 def build():
-    """Compile the kernel library unless a build of this source and these
-    flags exists; returns the library's path."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = os.path.join(BUILD_DIR, f"librollout_kernel_{digest[:16]}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-        os.close(fd)
-        try:
-            proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return lib_path
+    """Compile K1's library unless it exists; returns its path."""
+    return nvcc_build.build(*build_job())
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = nvcc_build.load(build())
         fn = lib.pointmass_rollout_launch
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]

@@ -20,7 +20,7 @@ def _where_state(done, on_true, on_false):
 
 
 def rollout(env, policy, params, tasks, generator, n_envs, horizon,
-            floor_std=True, obs0=None, noise=None):
+            floor_std=True, reset_draw=None, noise=None):
     """Collect ``n_envs`` rollouts of length ``horizon`` for every task.
 
     Args:
@@ -32,7 +32,9 @@ def rollout(env, policy, params, tasks, generator, n_envs, horizon,
         generator: torch.Generator on the tasks' device for resets and
             action noise.
         floor_std: apply the min-log-std floor (pre-update round).
-        obs0: optional pre-drawn initial reset draws (tasks, envs, ...).
+        reset_draw: optional pre-drawn random draw of the initial resets,
+            in the form the env's ``reset`` takes, with a (tasks, envs)
+            batch shape.
         noise: optional pre-drawn action noise (T, tasks, envs, act_dim),
             one standard-normal slab per step as the JAX engine draws it.
 
@@ -44,7 +46,7 @@ def rollout(env, policy, params, tasks, generator, n_envs, horizon,
     n_tasks = tasks.shape[0]
     device = tasks.device
     task_b = tasks[:, None].expand((n_tasks, n_envs) + tuple(tasks.shape[1:]))
-    state, obs = env.reset(task_b, generator, obs0)
+    state, obs = env.reset(task_b, generator, reset_draw)
     t_seg = torch.zeros((n_tasks, n_envs), dtype=torch.int32, device=device)
     apply_tasks = torch.func.vmap(
         lambda p, o: policy.apply(p, o, floor_std=floor_std))

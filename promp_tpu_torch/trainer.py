@@ -121,19 +121,21 @@ class Trainer:
                                            in_dims=(0, 0, None))
 
     # -------------------------------------------------------------- sampling
-    def _rollout(self, task_params, tasks, floor, obs0=None, noise=None):
-        """One sampling round. ``obs0``/``noise`` are optional pre-drawn
-        reset draws (tasks, envs, obs) and action noise: (T, tasks, envs,
-        act) for "scan", (tasks, T, envs, act) for "kernel"."""
+    def _rollout(self, task_params, tasks, floor, reset_draw=None,
+                 noise=None):
+        """One sampling round. ``reset_draw``/``noise`` are an optional
+        pre-drawn draw of the initial resets (as the env's ``reset`` takes
+        it, batch (tasks, envs)) and action noise: (T, tasks, envs, act) for
+        "scan", (tasks, T, envs, act) for "kernel"."""
         if self.rollout_backend == "scan":
             return rollout(self.env, self.policy, task_params, tasks,
                            self._gen, self.rollouts_per_meta_task,
                            self.max_path_length, floor_std=floor,
-                           obs0=obs0, noise=noise)
+                           reset_draw=reset_draw, noise=noise)
         n_tasks, n_envs = self.meta_batch_size, self.rollouts_per_meta_task
         horizon = self.max_path_length
         task_b = tasks[:, None].expand((n_tasks, n_envs) + tasks.shape[1:])
-        _, obs0 = self.env.reset(task_b, self._gen, obs0)
+        _, obs0 = self.env.reset(task_b, self._gen, reset_draw)
         if noise is None:
             noise = torch.randn((n_tasks, horizon, n_envs,
                                  self.env.action_dim), generator=self._gen,
@@ -184,8 +186,8 @@ class Trainer:
     def _run_phases(self, tasks=None, draws=None):
         """One phase-split iteration; returns host-side metrics.
 
-        ``tasks`` and ``draws`` (a list with one (obs0, noise) pair per
-        round, see ``_rollout``) may be given pre-drawn; otherwise they
+        ``tasks`` and ``draws`` (a list with one (reset draw, noise) pair
+        per round, see ``_rollout``) may be given pre-drawn; otherwise they
         come from the trainer's generator.
         """
         dev = self.device
@@ -197,10 +199,12 @@ class Trainer:
         t_sampling = t_proc = t_inner = t_policy = 0.0
         for step in range(self.num_inner_grad_steps + 1):
             floor = step == 0
-            obs0, noise = draws[step] if draws is not None else (None, None)
+            reset_draw, noise = (draws[step] if draws is not None
+                                 else (None, None))
             synchronize(dev)
             ts = time.time()
-            traj = self._rollout(task_params, tasks, floor, obs0, noise)
+            traj = self._rollout(task_params, tasks, floor, reset_draw,
+                                 noise)
             synchronize(dev)
             t_sampling += time.time() - ts
             tp = time.time()

@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from promp_tpu.ops.pallas_rollout import pallas_pointmass_rollout  # noqa: E402
 from promp_tpu.policies.gaussian_mlp import GaussianMLPPolicy  # noqa: E402
+from promp_tpu_torch.ops import nvcc_build  # noqa: E402
 from promp_tpu_torch.ops import rollout_kernel as rk  # noqa: E402
 from promp_tpu_torch.weights import from_numpy_params  # noqa: E402
 
@@ -110,11 +111,11 @@ def test_wrapper_rejects_bad_inputs(runs):
 
 def test_missing_nvcc_names_the_search(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent/cuda")
-    monkeypatch.setattr(rk.os, "access", lambda *a: False)
-    monkeypatch.setattr(rk.shutil, "which", lambda *a: None)
+    monkeypatch.setattr(nvcc_build.os, "access", lambda *a: False)
+    monkeypatch.setattr(nvcc_build.shutil, "which", lambda *a: None)
     with pytest.raises(RuntimeError, match="/nonexistent/cuda/bin/nvcc.*"
                        "/usr/local/cuda/bin/nvcc.*PATH"):
-        rk.find_nvcc()
+        nvcc_build.find_nvcc()
 
 
 def test_tie_margin():

@@ -151,7 +151,7 @@ def corner_runs():
         obs0, noise = _draws(jenv, tasks, key)
         got = trollout(tenv, tpol, from_numpy_params(np_params, "cpu"),
                        torch.tensor(np.asarray(tasks)), None, N_E, T,
-                       floor_std=floor, obs0=torch.as_tensor(obs0),
+                       floor_std=floor, reset_draw=torch.as_tensor(obs0),
                        noise=torch.as_tensor(noise))
         runs[floor] = (got, want)
     return runs

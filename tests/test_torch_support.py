@@ -13,7 +13,8 @@ backend.
 The JAX Trainer draws its own randomness; this module repeats its key
 splits (promp_tpu/trainer.py:98-99, 237 and 278-279; the scan engine's at
 sampling/rollout.py:64-83; the Pallas path's at trainer.py:131-135 and
-ops/pallas_rollout.py:112) and hands the draws to the port.
+ops/pallas_rollout.py:112; a locomotion env's reset at
+envs/mujoco/locomotion.py:69-80) and hands the draws to the port.
 
 The JAX side runs the Trainer's own jitted phases (_rollout, _process,
 _adapt, _outer) in the order of Trainer._run_phases, so that each round's
@@ -38,6 +39,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from promp_tpu import envs as jenvs  # noqa: E402
 from promp_tpu.algos.promp import ProMP as JProMP  # noqa: E402
+from promp_tpu.envs.mujoco.locomotion import LocomotionEnv as JLocomotionEnv  # noqa: E402
 from promp_tpu.policies.gaussian_mlp import GaussianMLPPolicy as JPolicy  # noqa: E402
 from promp_tpu.sampling.processor import SampleProcessor as JProc  # noqa: E402
 from promp_tpu.trainer import Trainer as JTrainer  # noqa: E402
@@ -77,27 +79,53 @@ def make_port_trainer(backend, reward_type="sparse", **kw):
                     rollout_backend=backend, **dict(RUN, **kw))
 
 
-@partial(jax.jit, static_argnums=(0, 3))
-def _jax_draws(jenv, tasks, key, backend):
+def locomotion_reset_draw(env, key):
+    """The random draw of one ``LocomotionEnv.reset`` with normal qvel
+    noise (locomotion.py:69-80) in the port's ``draw`` form: (the uniform
+    qpos noise, the standard-normal qvel draw before its scaling)."""
+    assert env.qvel_noise_kind == "normal"
+    nv = env.model.nv
+    kq, kv = jax.random.split(key)
+    return (jax.random.uniform(kq, (nv,), jnp.float32, -env.qpos_noise,
+                               env.qpos_noise),
+            jax.random.normal(kv, (nv,)))
+
+
+def jax_reset_draws(jenv, reset_keys, tasks):
+    """The port's reset draws for (tasks, envs) reset keys: the JAX reset's
+    own draw for a locomotion env, else the point mass's initial obs."""
+    inner = getattr(jenv, "env", jenv)
+    if isinstance(inner, JLocomotionEnv):
+        return jax.vmap(jax.vmap(partial(locomotion_reset_draw, inner)))(
+            reset_keys)
+    obs0, _ = jax.vmap(lambda ks, t: jax.vmap(
+        jenv.reset, in_axes=(0, None))(ks, t))(reset_keys, tasks)
+    return obs0
+
+
+@partial(jax.jit, static_argnums=(0, 3, 4))
+def _jax_draws(jenv, tasks, key, backend, shape):
+    """(reset draw, noise) of one round; ``shape`` is (tasks, envs, T,
+    act)."""
+    n_t, n_e, horizon, act = shape
     if backend == "scan":
         key_reset, key_scan = jax.random.split(key)
         noise = jax.vmap(lambda k: jax.random.normal(
-            jax.random.split(k, 3)[0], (N_T, N_E, 2)))(
-                jax.random.split(key_scan, T))
+            jax.random.split(k, 3)[0], (n_t, n_e, act)))(
+                jax.random.split(key_scan, horizon))
     else:
         key_reset, k_noise = jax.random.split(key)
-        noise = jax.random.normal(k_noise, (N_T, T, N_E, 2))
-    reset_keys = jax.random.split(key_reset, N_T * N_E).reshape(N_T, N_E, -1)
-    obs0, _ = jax.vmap(lambda ks, t: jax.vmap(
-        jenv.reset, in_axes=(0, None))(ks, t))(reset_keys, tasks)
-    return obs0, noise
+        noise = jax.random.normal(k_noise, (n_t, horizon, n_e, act))
+    reset_keys = jax.random.split(key_reset, n_t * n_e).reshape(n_t, n_e, -1)
+    return jax_reset_draws(jenv, reset_keys, tasks), noise
 
 
-def _round_draws(jenv, tasks, key, backend):
-    """(obs0, noise) of one sampling round, in the port's layouts: noise is
-    (T, tasks, envs, act) for "scan", (tasks, T, envs, act) for "kernel"."""
-    return tuple(torch.tensor(np.asarray(a))
-                 for a in _jax_draws(jenv, tasks, key, backend))
+def _round_draws(jenv, tasks, key, backend, shape=(N_T, N_E, T, 2)):
+    """(reset draw, noise) of one sampling round, in the port's layouts:
+    noise is (T, tasks, envs, act) for "scan", (tasks, T, envs, act) for
+    "kernel"."""
+    return jax.tree.map(lambda a: torch.tensor(np.asarray(a)),
+                        _jax_draws(jenv, tasks, key, backend, shape))
 
 
 def check_reward_flips(got, want_rewards, goals):
