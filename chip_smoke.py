@@ -4,9 +4,11 @@
 
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit;
-  2. build: K1 (csrc/rollout_kernel.cu) and K2 (csrc/substep_chain.cu,
-     filled in for half_cheetah) compiled with nvcc, one process each,
-     started together; each one's time, and K2's ptxas report;
+  2. build: K1 (csrc/rollout_kernel.cu), K2 (csrc/substep_chain.cu, filled
+     in for half_cheetah, walker2d and hopper) and K3
+     (csrc/substep_chain_mods.cu, for the same three bodies) compiled with
+     nvcc, one process each, all started together; each one's time and
+     ptxas report (registers, spills);
   3. k1_vs_plain: K1 against its plain PyTorch version at the main path's
      shape (40 tasks x 20 envs x 100 steps, a (64, 64) policy) on the same
      inputs: errors, reward-branch flips and their tie margins, paid
@@ -23,7 +25,25 @@ Phases, each printing one JSON line:
      normalize(HalfCheetahRandVelEnv()) at the same settings with
      rollout_backend="scan"; K2's launches (one per env step: 2 x 100 per
      iteration), finite losses, KLs, returns and parameters, no skipped
-     Adam updates, per-iteration times and forward velocities.
+     Adam updates, per-iteration times and forward velocities;
+  7. k3_vs_plain: K3 (csrc/substep_chain_mods.cu) against its plain
+     PyTorch version, one env step at a time from the same inputs, on
+     walker2d (the states, actions and per-task multipliers of a 100-step
+     Walker2DRandParamsEnv rollout at 40 x 20, which auto-resets, at steps
+     0, 25, 50, 75 and 99, and random states with per-env multipliers),
+     hopper and half_cheetah (random states, per-env multipliers); errors,
+     active contacts, timings, bounds;
+  8. k2_walker_hopper: K2 on walker2d and hopper, one random-state check
+     each;
+  9. trainer_walker_randparams: slice 3's main path, 3 ProMP
+     meta-iterations on normalize(Walker2DRandParamsEnv()) at the same
+     settings; K3's launches (2 x 100 per iteration) and none of K2's, the
+     episodes that ended inside the window (the auto-reset branch ran on
+     the card), finite losses, KLs, returns and parameters, no skipped Adam
+     updates, per-iteration times;
+ 10. step_ops: the aten operations one env step of the scan engine
+     dispatches on the cheetah and on the walker, with and without the
+     walker's auto-reset branch, and one pack of the walker's multipliers.
 Then the {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi prints them, and the final {"ok": true, ...} line. Any failure
 raises, and the script exits non-zero without the final line. It needs a
@@ -60,6 +80,10 @@ MAX_STEP_PROGRESS = 0.2 * 2 ** 0.5
 # |kernel - plain| <= atol + rtol * |plain|
 K2_Q_TOL, K2_QD_TOL = dict(rtol=1e-4, atol=1e-5), dict(rtol=1e-3, atol=1e-3)
 K2_STEPS = (0, 25, 50, 75, 99)       # rollout steps whose states are held
+# K3 holds to the same bars; the rand-params multipliers in the JAX order
+K3_KEYS = ("body_inertia", "body_mass", "dof_damping", "friction")
+K3_BODIES = ("walker2d", "hopper", "half_cheetah")
+PLAIN_RUNS_ADDED = 3   # timed runs of the plain chains of slice 3's bodies
 # published H100 SXM peaks at 700 W: FP32 without tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 TIMED_RUNS = 20
@@ -67,6 +91,11 @@ TIMED_RUNS = 20
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_lines(log):
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line]
 
 
 def median_ms(fn, runs=TIMED_RUNS):
@@ -207,21 +236,34 @@ def _promp_trainer(env, device, backend, log_dir):
         rollout_backend=backend, device=device)
 
 
-def _train(env, device, backend, counter, extra_keys=()):
-    """Runs N_ITR meta-iterations with ``counter`` (a kernel wrapper) set
-    to 0 just before; returns (per-iteration logged values, seconds,
-    launches). Raises unless every iteration is finite and skips no Adam
-    update."""
+def _train(env, device, backend, counters, extra_keys=()):
+    """Runs N_ITR meta-iterations with every launch count in ``counters``
+    ({name: (kernel wrapper, attribute)}) set to 0 just before; returns
+    (per-iteration logged values, seconds, {name: launches}, the number of
+    episodes that ended inside a round). Raises unless every iteration is
+    finite and skips no Adam update."""
     from promp_tpu_torch.utils import logger
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as log_dir:
         trainer = _promp_trainer(env, device, backend, log_dir)
-        counter.launches = 0
+        dones = []
+        sample = trainer._rollout
+
+        def counted(*args):
+            out = sample(*args)
+            dones.append(out["dones"].sum())   # read after the run
+            return out
+
+        trainer._rollout = counted
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
         t0 = time.time()
         state = trainer.train()
         torch.cuda.synchronize()
         seconds = time.time() - t0
-        launches = counter.launches
+        launches = {name: getattr(obj, attr)
+                    for name, (obj, attr) in counters.items()}
+        n_dones = int(sum(int(d) for d in dones))
         logger.Logger.CURRENT.close()
         with open(os.path.join(log_dir, "progress.csv")) as f:
             rows = list(csv.DictReader(f))
@@ -242,15 +284,17 @@ def _train(env, device, backend, counter, extra_keys=()):
     for k, v in state["params"].items():
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"parameter {k} is not finite")
-    return iterations, seconds, launches
+    return iterations, seconds, launches, n_dones
 
 
 def phase_trainer(device):
     from promp_tpu_torch.envs import MetaPointEnvCorner, normalize
     from promp_tpu_torch.ops.rollout_kernel import pointmass_rollout
 
-    iterations, seconds, launches = _train(
-        normalize(MetaPointEnvCorner()), device, "kernel", pointmass_rollout)
+    iterations, seconds, launches, _ = _train(
+        normalize(MetaPointEnvCorner()), device, "kernel",
+        {"k1": (pointmass_rollout, "launches")})
+    launches = launches["k1"]
     emit(dict(phase="trainer", iterations=iterations, seconds=seconds,
               k1_launches=launches))
     if launches != 2 * N_ITR:
@@ -260,20 +304,23 @@ def phase_trainer(device):
 
 
 class _Recorder:
-    """Wraps an env for ``rollout`` and keeps the (state, action) given to
-    its ``step`` at the steps in ``steps``."""
+    """Wraps an env for ``rollout`` and keeps the (state, action, task)
+    given to its ``step`` at the steps in ``steps``, and the dones."""
 
     def __init__(self, env, steps):
         self.env, self.steps, self.t, self.kept = env, set(steps), 0, {}
+        self.dones = 0
 
     def __getattr__(self, name):
         return getattr(self.env, name)
 
     def step(self, state, action, task):
         if self.t in self.steps:
-            self.kept[self.t] = (state, action)
+            self.kept[self.t] = (state, action, task)
         self.t += 1
-        return self.env.step(state, action, task)
+        out = self.env.step(state, action, task)
+        self.dones = self.dones + out[3].sum()
+        return out
 
 
 def k2_inputs(env, device, seed=0):
@@ -295,7 +342,7 @@ def k2_inputs(env, device, seed=0):
     rollout(recorder, policy, params, tasks, gen, N_ENVS, HORIZON)
     sets = []
     for t in K2_STEPS:
-        state, action = recorder.kept[t]
+        state, action, _ = recorder.kept[t]
         tau = engine.actuation(env.scale_action(action))
         sets.append((f"rollout_step_{t}",) + tuple(
             x.reshape(-1, nv).contiguous()
@@ -315,6 +362,54 @@ def _excess(got, want, tol):
                   / (tol["atol"] + tol["rtol"] * want.abs())).max())
 
 
+def _hold(kind, engine, kernel, plain, sets):
+    """Holds ``kernel`` against ``plain`` on each (label, *inputs) set, one
+    call each from the same inputs, at the K2 bars; returns (checks, max
+    abs errors). Raises on a non-finite output, an error over the bars,
+    or no active contact in any set."""
+    n_contacts = len(engine.model.con_body)
+    checks, errs = [], {"q": 0.0, "qd": 0.0}
+    for label, *ins in sets:
+        qk, qdk = kernel(*ins)
+        probe = []
+        qp, qdp = plain(*ins, probe)
+        torch.cuda.synchronize()
+        active = int(sum(p.sum() for p in probe[:n_contacts]))
+        finite = all(bool(torch.isfinite(x).all()) for x in (qk, qdk))
+        check = dict(
+            inputs=label, envs=ins[0].shape[0], active_contacts=active,
+            max_abs_err_q=float((qk - qp).abs().max()),
+            max_abs_err_qd=float((qdk - qdp).abs().max()),
+            excess_q=_excess(qk, qp, K2_Q_TOL),
+            excess_qd=_excess(qdk, qdp, K2_QD_TOL), finite=finite)
+        checks.append(check)
+        errs["q"] = max(errs["q"], check["max_abs_err_q"])
+        errs["qd"] = max(errs["qd"], check["max_abs_err_qd"])
+    for check in checks:
+        if not check["finite"]:
+            raise RuntimeError(f"{kind} output is not finite: {check}")
+        if check["excess_q"] > 1 or check["excess_qd"] > 1:
+            raise RuntimeError(f"{kind} disagrees with its plain version: "
+                               f"{check}")
+    if not any(c["active_contacts"] for c in checks):
+        raise RuntimeError(f"no contact was active in any {kind} check")
+    return checks, errs
+
+
+def _chain_bound(source, n_steps, batch, nv):
+    """Least time of one chain launch: the emitted ops a substep x n_steps
+    x batch at the FP32 peak, against q, qd, tau (and the mods row) read
+    once and q, qd written once at the memory rate."""
+    flops = float(source.n_ops * n_steps * batch)
+    nbytes = batch * (5 * nv + source.nm) * 4
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes, ops_per_substep=source.n_ops,
+                nm=source.nm)
+
+
 def phase_k2(device):
     from promp_tpu_torch.envs import make_env, normalize
     from promp_tpu_torch.ops.substep_kernel import (
@@ -326,61 +421,244 @@ def phase_k2(device):
     kernel = substep_chain(engine, n_steps)
     plain = substep_chain_plain(engine, n_steps)
     sets = k2_inputs(env, device)
-    checks, errs = [], {"q": 0.0, "qd": 0.0}
-    for label, q, qd, tau in sets:
-        qk, qdk = kernel(q, qd, tau)
-        probe = []
-        qp, qdp = plain(q, qd, tau, probe)
-        torch.cuda.synchronize()
-        n_contacts = len(engine.model.con_body)
-        active = int(sum(p.sum() for p in probe[:n_contacts]))
-        finite = all(bool(torch.isfinite(x).all()) for x in (qk, qdk))
-        check = dict(
-            inputs=label, envs=q.shape[0], active_contacts=active,
-            max_abs_err_q=float((qk - qp).abs().max()),
-            max_abs_err_qd=float((qdk - qdp).abs().max()),
-            excess_q=_excess(qk, qp, K2_Q_TOL),
-            excess_qd=_excess(qdk, qdp, K2_QD_TOL), finite=finite)
-        checks.append(check)
-        errs["q"] = max(errs["q"], check["max_abs_err_q"])
-        errs["qd"] = max(errs["qd"], check["max_abs_err_qd"])
+    checks, errs = _hold("K2", engine, kernel, plain, sets)
     q, qd, tau = sets[0][1:]
     result = dict(phase="k2_vs_plain", model="half_cheetah", n_steps=n_steps,
                   checks=checks, tolerances=dict(q=K2_Q_TOL, qd=K2_QD_TOL))
     result["ms"] = median_ms(lambda: kernel(q, qd, tau))
     result["plain_ms"] = median_ms(lambda: plain(q, qd, tau))
-    source = SubstepSource(engine)
-    flops = float(source.n_ops * n_steps * q.shape[0])
-    nbytes = 5 * q.numel() * 4   # q, qd, tau read; q, qd written
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    result.update(bound_ms=max(t_ops, t_bytes),
-                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                  flops=flops, bytes=nbytes, ops_per_substep=source.n_ops,
-                  max_abs_err=errs)
+    result.update(_chain_bound(SubstepSource(engine), n_steps, q.shape[0],
+                               engine.model.nv), max_abs_err=errs)
     emit(result)
-    for check in checks:
-        if not check["finite"]:
-            raise RuntimeError(f"K2 output is not finite: {check}")
-        if check["excess_q"] > 1 or check["excess_qd"] > 1:
-            raise RuntimeError(f"K2 disagrees with its plain version: "
-                               f"{check}")
-    if not any(c["active_contacts"] for c in checks):
-        raise RuntimeError("no contact was active in any K2 check")
     return result
+
+
+# slice 3's bodies and the rand-params env each runs in
+K3_ENVS = {"walker2d": "Walker2DRandParamsEnv",
+           "hopper": "HopperRandParamsEnv",
+           "half_cheetah": "HalfCheetahRandParamsEnv"}
+
+
+def random_chain_inputs(engine, gen, device, mods):
+    """(label, q, qd, tau[, mods_packed]) of N_TASKS * N_ENVS random
+    states about the model's initial pose (drawn as the K2 tests draw
+    them), with per-env random multipliers (every row its own) when
+    ``mods``."""
+    from promp_tpu_torch.envs.mujoco.rand_params import (
+        sample_param_multipliers)
+    from promp_tpu_torch.ops.substep_kernel import pack_mods
+
+    m = engine.model
+    n = N_TASKS * N_ENVS
+    init = torch.as_tensor(m.init_qpos, dtype=torch.float32, device=device)
+    q = init + 0.3 * torch.randn((n, m.nv), generator=gen, device=device)
+    q[:, 2] += 0.6
+    qd = torch.randn((n, m.nv), generator=gen, device=device)
+    tau = 0.5 * torch.randn((n, m.nv), generator=gen, device=device)
+    if not mods:
+        return ("random", q, qd, tau)
+    multipliers = sample_param_multipliers(gen, m, n, 3.0, device=device)
+    return ("random_per_env_mods", q, qd, tau,
+            pack_mods(m, K3_KEYS, multipliers, (n,)))
+
+
+def k3_walker_inputs(env, device, seed=0):
+    """(label, q, qd, tau, mods_packed) sets of (N_TASKS * N_ENVS, ·)
+    inputs of one env step: the states, actuation and per-task multipliers
+    of a Walker2DRandParamsEnv rollout with a seeded (64, 64) policy at the
+    steps K2_STEPS; and the rollout's number of dones."""
+    from promp_tpu_torch.ops.substep_kernel import pack_mods
+    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
+    from promp_tpu_torch.sampling.rollout import rollout
+
+    engine = env.env.engine
+    nv = engine.model.nv
+    gen = torch.Generator(device=device).manual_seed(seed)
+    policy = GaussianMLPPolicy(obs_dim=env.obs_dim, action_dim=env.action_dim,
+                               hidden_sizes=HIDDEN)
+    params = policy.replicate(policy.init(gen, device), N_TASKS)
+    tasks = env.sample_tasks(gen, N_TASKS, device)
+    recorder = _Recorder(env, K2_STEPS)
+    rollout(recorder, policy, params, tasks, gen, N_ENVS, HORIZON)
+    sets = []
+    for t in K2_STEPS:
+        state, action, task = recorder.kept[t]
+        tau = engine.actuation(env.scale_action(action))
+        sets.append((f"rollout_step_{t}",) + tuple(
+            x.reshape(-1, nv).contiguous()
+            for x in (state["q"], state["qd"], tau)) + (
+            pack_mods(engine.model, K3_KEYS, task, state["q"].shape[:-1]),))
+    return sets, int(recorder.dones)
+
+
+def phase_k3(device):
+    from promp_tpu_torch.envs import make_env, normalize
+    from promp_tpu_torch.ops.substep_kernel import (
+        SubstepSource, substep_chain, substep_chain_plain)
+
+    results = {}
+    for body, env_name in K3_ENVS.items():
+        env = normalize(make_env(env_name))
+        engine = env.env.engine
+        n_steps = env.env.frame_skip * engine.n_substeps
+        kernel = substep_chain(engine, n_steps, K3_KEYS)
+        plain = substep_chain_plain(engine, n_steps, K3_KEYS)
+        gen = torch.Generator(device=device).manual_seed(1)
+        sets, dones = ([], None)
+        if body == "walker2d":
+            sets, dones = k3_walker_inputs(env, device)
+        sets.append(random_chain_inputs(engine, gen, device, mods=True))
+        checks, errs = _hold("K3", engine, kernel, plain, sets)
+        ins = sets[0][1:]
+        result = dict(phase="k3_vs_plain", model=body, n_steps=n_steps,
+                      checks=checks, rollout_dones=dones,
+                      tolerances=dict(q=K2_Q_TOL, qd=K2_QD_TOL))
+        result["ms"] = median_ms(lambda: kernel(*ins))
+        result["plain_ms"] = median_ms(lambda: plain(*ins),
+                                       runs=PLAIN_RUNS_ADDED)
+        result.update(_chain_bound(SubstepSource(engine, K3_KEYS), n_steps,
+                                   ins[0].shape[0], engine.model.nv),
+                      max_abs_err=errs)
+        emit(result)
+        results[body] = result
+    if not results["walker2d"]["rollout_dones"]:
+        raise RuntimeError("the walker rollout ended no episode")
+    return results
+
+
+def phase_k2_walker_hopper(device):
+    from promp_tpu_torch.envs import make_env
+    from promp_tpu_torch.ops.substep_kernel import (
+        substep_chain, substep_chain_plain)
+
+    out = []
+    for env_name in ("Walker2DRandVelEnv", "HopperEnv"):
+        env = make_env(env_name)
+        engine = env.engine
+        n_steps = env.frame_skip * engine.n_substeps
+        kernel = substep_chain(engine, n_steps)
+        plain = substep_chain_plain(engine, n_steps)
+        gen = torch.Generator(device=device).manual_seed(2)
+        sets = [random_chain_inputs(engine, gen, device, mods=False)]
+        checks, errs = _hold("K2", engine, kernel, plain, sets)
+        ins = sets[0][1:]
+        out.append(dict(model=engine.model.name, n_steps=n_steps,
+                        checks=checks, max_abs_err=errs,
+                        ms=median_ms(lambda: kernel(*ins))))
+    emit(dict(phase="k2_walker_hopper", results=out,
+              tolerances=dict(q=K2_Q_TOL, qd=K2_QD_TOL)))
+    return out
+
+
+class _NeverDone:
+    """An env wrapper whose episodes never end: the rollout skips its
+    auto-reset branch."""
+
+    never_done = True
+
+    def __init__(self, env):
+        self.env = env
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+
+def _dispatched_ops(fn):
+    """The number of aten operations ``fn()`` dispatches (a kernel called
+    through ctypes, as K1-K3 are, dispatches none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def phase_step_ops(device):
+    """aten operations a scan-engine env step dispatches at the main path's
+    shape (a 2-step rollout minus a 1-step one): the cheetah's, the
+    walker's with and without its auto-reset branch, and one pack of the
+    walker's multipliers (inside each walker step)."""
+    from promp_tpu_torch.envs import make_env, normalize
+    from promp_tpu_torch.ops.substep_kernel import pack_mods
+    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
+    from promp_tpu_torch.sampling.rollout import rollout
+
+    def per_step(env):
+        gen = torch.Generator(device=device).manual_seed(3)
+        policy = GaussianMLPPolicy(obs_dim=env.obs_dim,
+                                   action_dim=env.action_dim,
+                                   hidden_sizes=HIDDEN)
+        params = policy.replicate(policy.init(gen, device), N_TASKS)
+        tasks = env.sample_tasks(gen, N_TASKS, device)
+        n = [_dispatched_ops(lambda: rollout(env, policy, params, tasks, gen,
+                                             N_ENVS, horizon))
+             for horizon in (1, 2)]
+        return n[1] - n[0]
+
+    cheetah = normalize(make_env("HalfCheetahRandVelEnv"))
+    walker = normalize(make_env("Walker2DRandParamsEnv"))
+    tasks = walker.sample_tasks(torch.Generator(device=device).manual_seed(4),
+                                N_TASKS, device)
+    task_b = {k: v[:, None].expand((N_TASKS, N_ENVS) + v.shape[1:])
+              for k, v in tasks.items()}
+    result = dict(
+        phase="step_ops", cheetah=per_step(cheetah),
+        walker=per_step(walker), walker_never_done=per_step(
+            _NeverDone(walker)),
+        walker_pack_mods=_dispatched_ops(lambda: pack_mods(
+            walker.env.model, K3_KEYS, task_b, (N_TASKS, N_ENVS))))
+    result["walker_auto_reset"] = (result["walker"]
+                                   - result["walker_never_done"])
+    emit(result)
+    return result
+
+
+def phase_trainer_walker(device):
+    from promp_tpu_torch.envs import make_env, normalize
+    from promp_tpu_torch.ops.substep_kernel import substep_chain
+
+    iterations, seconds, launches, dones = _train(
+        normalize(make_env("Walker2DRandParamsEnv")), device, "scan",
+        {"k2": (substep_chain, "launches"),
+         "k3": (substep_chain, "mods_launches")})
+    emit(dict(phase="trainer_walker_randparams", iterations=iterations,
+              seconds=seconds, k2_launches=launches["k2"],
+              k3_launches=launches["k3"], dones=dones))
+    if launches["k3"] != 2 * HORIZON * N_ITR or launches["k2"]:
+        raise RuntimeError(f"K3 launched {launches['k3']} and K2 "
+                           f"{launches['k2']} times in {N_ITR} walker "
+                           f"iterations, expected {2 * HORIZON * N_ITR} "
+                           "and 0")
+    if not dones:
+        raise RuntimeError("no walker episode ended inside a round: the "
+                           "auto-reset branch did not run")
+    return launches["k3"]
 
 
 def phase_trainer_cheetah(device):
     from promp_tpu_torch.envs import make_env, normalize
     from promp_tpu_torch.ops.substep_kernel import substep_chain
 
-    iterations, seconds, launches = _train(
+    iterations, seconds, launches, _ = _train(
         normalize(make_env("HalfCheetahRandVelEnv")), device, "scan",
-        substep_chain, extra_keys=tuple(
+        {"k2": (substep_chain, "launches"),
+         "k3": (substep_chain, "mods_launches")}, extra_keys=tuple(
             f"Step_{k}-{key}" for k in (0, 1) for key in
             ("AvgForwardVel", "AvgFinalForwardVel", "AvgCtrlCost")))
     emit(dict(phase="trainer_cheetah", iterations=iterations,
-              seconds=seconds, k2_launches=launches))
+              seconds=seconds, k2_launches=launches["k2"],
+              k3_launches=launches["k3"]))
+    if launches["k3"]:
+        raise RuntimeError(f"K3 launched {launches['k3']} times on the "
+                           "cheetah, which has no physics mods")
+    launches = launches["k2"]
     if launches != 2 * HORIZON * N_ITR:
         raise RuntimeError(f"K2 launched {launches} times in {N_ITR} "
                            f"iterations, expected {2 * HORIZON * N_ITR}")
@@ -405,21 +683,31 @@ def main():
 
     from promp_tpu_torch.envs.mujoco.engine import Engine
     from promp_tpu_torch.envs.mujoco.model import get_model
+    engines = {body: Engine(get_model(body)) for body in K3_BODIES}
+    jobs = [("K1", rollout_kernel.build_job()),
+            ("K2 half_cheetah", substep_kernel.build_job(
+                engines["half_cheetah"]))]
+    jobs += [(f"K3 {body}", substep_kernel.build_job(engines[body], K3_KEYS))
+             for body in K3_BODIES]
+    jobs += [(f"K2 {body}", substep_kernel.build_job(engines[body]))
+             for body in ("walker2d", "hopper")]
     t0 = time.time()
-    builds = nvcc_build.build_all([
-        rollout_kernel.build_job(),
-        substep_kernel.build_job(Engine(get_model("half_cheetah")))])
+    builds = nvcc_build.build_all([job for _, job in jobs])
     emit(dict(phase="build", seconds=time.time() - t0, libraries=[
-        dict(library=os.path.basename(b.path), seconds=b.seconds)
-        for b in builds], k2_ptxas=[
-            line.strip() for line in builds[1].log.splitlines()
-            if "registers" in line or "spill" in line]))
+        dict(kernel=label, library=os.path.basename(b.path),
+             seconds=b.seconds, ptxas=ptxas_lines(b.log))
+        for (label, _), b in zip(jobs, builds)]))
 
     k1 = phase_k1(device)
     k1_launches = phase_trainer(device)
     k2 = phase_k2(device)
     k2_launches = phase_trainer_cheetah(device)
+    k3 = phase_k3(device)
+    phase_k2_walker_hopper(device)
+    k3_launches = phase_trainer_walker(device)
+    phase_step_ops(device)
 
+    k3w = k3["walker2d"]
     emit({"kernels": [
         dict(name="K1_pointmass_rollout", route="cuda",
              source="promp_tpu_torch/csrc/rollout_kernel.cu",
@@ -434,7 +722,16 @@ def main():
              launches=k2_launches,
              max_abs_err=max(k2["max_abs_err"].values()),
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None)]})
+             bound_by=k2["bound_by"], library_ms=None),
+        dict(name="K3_substep_chain_mods", route="cuda",
+             source="promp_tpu_torch/csrc/substep_chain_mods.cu",
+             replaces="promp_tpu/ops/pallas_substep.py:252",
+             launches=k3_launches,
+             max_abs_err=max(max(r["max_abs_err"].values())
+                             for r in k3.values()),
+             ms=k3w["ms"], plain_ms=k3w["plain_ms"],
+             bound_ms=k3w["bound_ms"], bound_by=k3w["bound_by"],
+             library_ms=None)]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

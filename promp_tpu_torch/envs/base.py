@@ -2,7 +2,9 @@
 
 An environment is a frozen config dataclass with pure methods over
 explicit, batched state. Every method works on any leading batch shape;
-``task`` carries that batch shape in front of its own trailing axis:
+``task``, a tensor or a dict of tensors (the rand-params multipliers),
+carries that batch shape in front of each tensor's own trailing axes
+(``task_event_ndim`` of them):
 
     sample_tasks(generator, n, device)      -> (n, ...) task tensor
     reset(task, generator, draw=None)       -> (state, obs)
@@ -36,6 +38,31 @@ def make_env(name, **kwargs):
     return ENV_REGISTRY[name](**kwargs)
 
 
+def task_leaf(task):
+    """A task's first tensor: the tensor, or a dict's under its first key
+    in sorted order (``jax.tree.leaves``' order)."""
+    return task[sorted(task)[0]] if isinstance(task, dict) else task
+
+
+def task_batch_shape(task, event_ndim=0):
+    """The batch shape of a task: its first tensor's shape without the
+    trailing axes of one instance's task. ``event_ndim`` counts those
+    axes: an int, or for a dict task a dict of ints by key."""
+    leaf = task_leaf(task)
+    if isinstance(event_ndim, dict):
+        event_ndim = event_ndim[sorted(task)[0]]
+    return tuple(leaf.shape[:leaf.dim() - event_ndim])
+
+
+def task_expand(tasks, n_envs):
+    """(tasks, ...) task tensors -> (tasks, n_envs, ...) views."""
+    def expand(v):
+        return v[:, None].expand((v.shape[0], n_envs) + tuple(v.shape[1:]))
+    if isinstance(tasks, dict):
+        return {k: expand(v) for k, v in tasks.items()}
+    return expand(tasks)
+
+
 @dataclass(frozen=True)
 class Box:
     """Minimal bounds descriptor."""
@@ -61,12 +88,15 @@ class TaskEnv:
 
     Optional attributes: ``diagnostics_keys`` (info keys averaged per
     round), ``never_done`` (episodes end only at the horizon, so the
-    rollout skips its auto-reset branch), ``stochastic_step``.
+    rollout skips its auto-reset branch), ``stochastic_step``,
+    ``task_event_ndim`` (the trailing axes of one instance's task, see
+    ``task_batch_shape``).
     """
 
     diagnostics_keys: Tuple[str, ...] = ()
     never_done: bool = False
     stochastic_step: bool = False
+    task_event_ndim: Any = 0
 
     def reset_carry(self, prev_state, task, generator, draw=None):
         """Reset for in-loop auto-resets, given the terminated episode's

@@ -4,11 +4,12 @@ the ``Engine.step`` route of ``spatial_ok`` bodies).
 ``Engine.step`` advances a batch of env states by ``frame_skip`` MJCF
 frames: it clips the control to the actuators' ranges, applies the gears
 at the actuated dofs, and runs the chain of ``frame_skip * n_substeps``
-implicit-Euler substeps as one call of K2 (ops/substep_kernel.py): the
-CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor.
-A body that the spatial substep does not cover (fluid, contact pairs,
-ground-skip spheres: swimmer, sawyer) and rand-params physics mods raise;
-the port has no other route for them yet, and never falls back.
+implicit-Euler substeps as one call of K2, or of K3 when rand-params
+physics mods are given (ops/substep_kernel.py): the CUDA kernel on a CUDA
+tensor, its plain PyTorch version on a CPU tensor. A body that the spatial
+substep does not cover (fluid, contact pairs, ground-skip spheres:
+swimmer, sawyer) and a mod key that K3 does not take raise; the port has
+no other route for them yet, and never falls back.
 """
 from __future__ import annotations
 
@@ -38,13 +39,15 @@ class Engine:
     # finite where the free-root Euler decomposition makes M singular
     solve_reg: float = 1.0e-5
 
-    def _chain(self, n_steps):
-        """K2's wrapper for ``n_steps`` substeps, built once an engine (the
-        frozen dataclass caches it in its ``__dict__``)."""
+    def _chain(self, n_steps, mod_keys=()):
+        """K2's wrapper for ``n_steps`` substeps, or K3's for ``mod_keys``,
+        built once an engine for each ``(n_steps, mod_keys)`` (the frozen
+        dataclass caches it in its ``__dict__``)."""
         cache = self.__dict__.setdefault("_chain_cache", {})
-        if n_steps not in cache:
-            cache[n_steps] = substep_kernel.substep_chain(self, n_steps)
-        return cache[n_steps]
+        key = (n_steps, tuple(mod_keys))
+        if key not in cache:
+            cache[key] = substep_kernel.substep_chain(self, *key)
+        return cache[key]
 
     def _actuator_consts(self, dtype, device):
         """(lo, hi, gear, act_dof) tensors on ``device``, made once a device
@@ -70,24 +73,33 @@ class Engine:
 
     def step(self, q, qd, ctrl, frame_skip, mods=None):
         """Advance ``frame_skip`` MJCF frames (the env-visible dt). ``q``,
-        ``qd``: (..., nv); ``ctrl``: (..., nu), any common batch shape."""
+        ``qd``: (..., nv); ``ctrl``: (..., nu), any common batch shape.
+        ``mods``: rand-params multipliers, a dict of tensors with that batch
+        shape (or one that broadcasts to it) in front of each key's own axes
+        (envs/mujoco/rand_params.py); packed anew each call."""
         m = self.model
-        if mods is not None:
-            raise NotImplementedError(
-                f"Engine.step on '{m.name}': rand-params physics mods "
-                f"{sorted(mods)} are not ported yet (the K2 chain with mods, "
-                "K3)")
         if not spatial_ok(m):
             raise NotImplementedError(
                 f"Engine.step on '{m.name}': the model is not spatial_ok "
                 "(fluid, contact pairs or ground-skip spheres), and the "
                 "generic engine is not ported yet")
+        n_steps = frame_skip * self.n_substeps
+        # the keys in JAX's order (engine.py: tuple(sorted(mods)))
+        mod_keys = () if mods is None else tuple(sorted(mods))
+        try:
+            chain = self._chain(n_steps, mod_keys)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"Engine.step on '{m.name}': {e}") \
+                from e
         tau = self.actuation(ctrl)
         shape = q.shape
         flat = lambda x: x.reshape(-1, m.nv).contiguous()
-        chain = self._chain(frame_skip * self.n_substeps)
+        args = [flat(q), flat(qd), flat(tau)]
+        if mod_keys:
+            args.append(substep_kernel.pack_mods(m, mod_keys, mods,
+                                                 shape[:-1]))
         try:
-            q2, qd2 = chain(flat(q), flat(qd), flat(tau))
+            q2, qd2 = chain(*args)
         except RuntimeError as e:
             raise RuntimeError(f"Engine.step on '{m.name}': {e}") from e
         return q2.reshape(shape), qd2.reshape(shape)

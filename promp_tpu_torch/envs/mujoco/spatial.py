@@ -16,9 +16,15 @@ value; the algebra is written once over a small back-end interface:
   * ``lift(c)``, a constant as a back-end value.
 
 Two back ends implement it: ``TorchOps`` (values are (B,) float32 tensors,
-the substep runs eagerly: the plain version of K2) and ``CEmitter``
+the substep runs eagerly: the plain version of K2 and K3) and ``CEmitter``
 (values are named SSA temporaries ``const float tN = ...;``, the body of
-K2's CUDA source, ops/substep_kernel.py).
+K2's and K3's CUDA sources, ops/substep_kernel.py).
+
+With rand-params mods (K3), the body masses, inertias, dof dampings and
+the ground friction are multiplied by per-env multipliers: columns of a
+packed (B, nm) input, (B,) tensors in the torch back end and named loads
+``m[i]`` of the env's row in the C back end. Those products are back-end
+values, so they no longer fold; without mods the body is K2's, unchanged.
 
 Per substep (the same closed forms as the JAX package's substep):
   * FK with rotation matrices; the anchor rotation folds to
@@ -43,7 +49,7 @@ import torch
 from promp_tpu_torch.envs.mujoco.model import HINGE
 
 __all__ = ["spatial_ok", "make_spatial_substep", "TorchOps", "CEmitter",
-           "c_float"]
+           "c_float", "MOD_BASE_NDIM", "mod_rows", "unpack_mods"]
 
 
 def spatial_ok(model) -> bool:
@@ -372,6 +378,39 @@ def _sym_add(A, B):
     return tuple(_add(a, b) for a, b in zip(A, B))
 
 
+# ---------------------------------------------------------------- mods
+# Rand-params multiplier keys the substep takes (JAX pallas_substep.py
+# _MOD_BASE_NDIM): the number of trailing axes of one instance's multiplier.
+MOD_BASE_NDIM = {"body_mass": 1, "body_inertia": 2, "dof_damping": 1,
+                 "friction": 0}
+
+
+def mod_rows(model, key):
+    """Packed row count of one mod key."""
+    return {"body_mass": model.nb, "body_inertia": 3 * model.nb,
+            "dof_damping": model.nv, "friction": 1}[key]
+
+
+def unpack_mods(model, mod_keys, row):
+    """The ``mods`` dict of the substep from a packed mods row: ``row(i)``
+    is the back-end value of packed column i, the keys' columns laid out
+    in ``mod_keys`` order (body_inertia's [b, k] at 3 b + k), as JAX's
+    ``_pack_mods`` lays them out."""
+    d, off = {}, 0
+    for k in mod_keys:
+        if k == "body_mass":
+            d[k] = [row(off + b) for b in range(model.nb)]
+        elif k == "body_inertia":
+            d[k] = [[row(off + 3 * b + c) for c in range(3)]
+                    for b in range(model.nb)]
+        elif k == "dof_damping":
+            d[k] = [row(off + j) for j in range(model.nv)]
+        elif k == "friction":
+            d[k] = row(off)
+        off += mod_rows(model, k)
+    return d
+
+
 def _value(ops, x):
     """A back-end value: ``x`` itself, or the constant ``x`` lifted."""
     return ops.lift(x) if _c(x) else x
@@ -380,11 +419,14 @@ def _value(ops, x):
 def make_spatial_substep(engine):
     """Build the substep of ``engine``'s model.
 
-    Returns ``substep(ops, qs, qds, taus, probe=None) -> (q_new, qd_new)``
-    over per-dof lists of back-end values, with the substep length
-    ``h = timestep / n_substeps`` folded in as a Python float, as the TPU
-    kernel folds it. ``probe``, a list, receives each contact's 0/1
-    in-contact value.
+    Returns ``substep(ops, qs, qds, taus, probe=None, mods=None) ->
+    (q_new, qd_new)`` over per-dof lists of back-end values, with the
+    substep length ``h = timestep / n_substeps`` folded in as a Python
+    float, as the TPU kernel folds it. ``probe``, a list, receives each
+    contact's 0/1 in-contact value. ``mods``, from ``unpack_mods``, holds
+    rand-params multipliers as back-end values; each given key turns its
+    constants (body masses, inertias, dof dampings, the ground friction)
+    into back-end products.
     """
     m = engine.model
     if not spatial_ok(m):
@@ -430,11 +472,6 @@ def make_spatial_substep(engine):
     springref = [float(v) for v in np.asarray(m.jnt_springref, np.float64)]
     armature = [float(v) for v in np.asarray(m.dof_armature, np.float64)]
     gravity = float(m.gravity)
-    mass = [float(m.body_mass[b]) for b in range(nb)]
-    inertia = [[float(m.body_inertia[b, k]) for k in range(3)]
-               for b in range(nb)]
-    damping = [float(m.dof_damping[j]) for j in range(nv)]
-    friction = float(m.friction)
 
     k_con = float(engine.contact_stiffness)
     c_con = float(engine.contact_damping)
@@ -472,9 +509,31 @@ def make_spatial_substep(engine):
     if (nzp & ~pattern_p).any():
         raise AssertionError("Cholesky fill left the tree's sparsity pattern")
 
-    def substep(ops, q, qd, tau_act, probe=None):
+    def substep(ops, q, qd, tau_act, probe=None, mods=None):
+        def mod1(name, idx, base):
+            if mods and name in mods:
+                return base * mods[name][idx]
+            return base
+
         qs = [q[j] for j in range(nv)]
         qds = [qd[j] for j in range(nv)]
+
+        # the rand-params multipliers scale these constants with a plain
+        # product (no folding), as the JAX substep does; without mods they
+        # stay Python floats and fold
+        mass = [mod1("body_mass", b, float(m.body_mass[b]))
+                for b in range(nb)]
+        if mods and "body_inertia" in mods:
+            inertia = [[float(m.body_inertia[b, k])
+                        * mods["body_inertia"][b][k] for k in range(3)]
+                       for b in range(nb)]
+        else:
+            inertia = [[float(m.body_inertia[b, k]) for k in range(3)]
+                       for b in range(nb)]
+        damping = [mod1("dof_damping", j, float(m.dof_damping[j]))
+                   for j in range(nv)]
+        friction = (mods["friction"] * float(m.friction)
+                    if mods and "friction" in mods else float(m.friction))
 
         # ------------------------------------------------------------- fk
         R = [None] * nb                    # row-major 9-tuples

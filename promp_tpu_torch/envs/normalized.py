@@ -42,6 +42,10 @@ class NormalizedEnv(TaskEnv):
         return self.env.diagnostics(samples)
 
     @property
+    def task_event_ndim(self):
+        return self.env.task_event_ndim
+
+    @property
     def never_done(self):
         return getattr(self.env, "never_done", False)
 

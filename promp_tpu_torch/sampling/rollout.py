@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from promp_tpu_torch.envs.base import task_expand, task_leaf
+
 
 def _where_state(done, on_true, on_false):
     """Select env-state leaves (tensors or dicts of tensors) per env."""
@@ -19,8 +21,15 @@ def _where_state(done, on_true, on_false):
     return torch.where(d, on_true, on_false)
 
 
+def _at(draws, t):
+    """Step ``t`` of a (T, ...) draw: a tensor or a tuple of tensors."""
+    if isinstance(draws, (tuple, list)):
+        return tuple(d[t] for d in draws)
+    return draws[t]
+
+
 def rollout(env, policy, params, tasks, generator, n_envs, horizon,
-            floor_std=True, reset_draw=None, noise=None):
+            floor_std=True, reset_draw=None, noise=None, reset_draws=None):
     """Collect ``n_envs`` rollouts of length ``horizon`` for every task.
 
     Args:
@@ -28,7 +37,7 @@ def rollout(env, policy, params, tasks, generator, n_envs, horizon,
         policy: GaussianMLPPolicy.
         params: params dict with a leading task axis (``policy.replicate``
             for the pre-update round).
-        tasks: (tasks, ...) task tensor.
+        tasks: (tasks, ...) task tensor, or a dict of them.
         generator: torch.Generator on the tasks' device for resets and
             action noise.
         floor_std: apply the min-log-std floor (pre-update round).
@@ -37,15 +46,20 @@ def rollout(env, policy, params, tasks, generator, n_envs, horizon,
             batch shape.
         noise: optional pre-drawn action noise (T, tasks, envs, act_dim),
             one standard-normal slab per step as the JAX engine draws it.
+        reset_draws: optional pre-drawn draws of the in-loop auto-resets,
+            (T, tasks, envs, ...) in the form the env's ``reset`` takes
+            (a tensor or a tuple of them); step t's resets take
+            ``reset_draws[t]``, as the JAX engine draws them for every env
+            at every step.
 
     Returns:
         dict with leaves shaped (tasks, envs, horizon, ...): observations,
         actions, rewards, dones, timesteps, agent_infos{mean, log_std},
         env_infos{...}.
     """
-    n_tasks = tasks.shape[0]
-    device = tasks.device
-    task_b = tasks[:, None].expand((n_tasks, n_envs) + tuple(tasks.shape[1:]))
+    leaf = task_leaf(tasks)
+    n_tasks, device = leaf.shape[0], leaf.device
+    task_b = task_expand(tasks, n_envs)
     state, obs = env.reset(task_b, generator, reset_draw)
     t_seg = torch.zeros((n_tasks, n_envs), dtype=torch.int32, device=device)
     apply_tasks = torch.func.vmap(
@@ -68,7 +82,9 @@ def rollout(env, policy, params, tasks, generator, n_envs, horizon,
         if env.never_done:
             state, obs, t_seg = new_state, new_obs, t_seg + 1
         else:
-            re_state, re_obs = env.reset_carry(new_state, task_b, generator)
+            re_state, re_obs = env.reset_carry(
+                new_state, task_b, generator,
+                None if reset_draws is None else _at(reset_draws, t))
             state = _where_state(dones, re_state, new_state)
             obs = torch.where(dones[..., None], re_obs, new_obs)
             t_seg = torch.where(dones, torch.zeros_like(t_seg), t_seg + 1)

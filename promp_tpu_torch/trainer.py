@@ -122,16 +122,19 @@ class Trainer:
 
     # -------------------------------------------------------------- sampling
     def _rollout(self, task_params, tasks, floor, reset_draw=None,
-                 noise=None):
+                 noise=None, reset_draws=None):
         """One sampling round. ``reset_draw``/``noise`` are an optional
         pre-drawn draw of the initial resets (as the env's ``reset`` takes
         it, batch (tasks, envs)) and action noise: (T, tasks, envs, act) for
-        "scan", (tasks, T, envs, act) for "kernel"."""
+        "scan", (tasks, T, envs, act) for "kernel". ``reset_draws``, for
+        "scan", are the optional pre-drawn draws of the in-loop auto-resets
+        (sampling/rollout.py)."""
         if self.rollout_backend == "scan":
             return rollout(self.env, self.policy, task_params, tasks,
                            self._gen, self.rollouts_per_meta_task,
                            self.max_path_length, floor_std=floor,
-                           reset_draw=reset_draw, noise=noise)
+                           reset_draw=reset_draw, noise=noise,
+                           reset_draws=reset_draws)
         n_tasks, n_envs = self.meta_batch_size, self.rollouts_per_meta_task
         horizon = self.max_path_length
         task_b = tasks[:, None].expand((n_tasks, n_envs) + tasks.shape[1:])
@@ -186,9 +189,10 @@ class Trainer:
     def _run_phases(self, tasks=None, draws=None):
         """One phase-split iteration; returns host-side metrics.
 
-        ``tasks`` and ``draws`` (a list with one (reset draw, noise) pair
-        per round, see ``_rollout``) may be given pre-drawn; otherwise they
-        come from the trainer's generator.
+        ``tasks`` (a tensor or a dict of tensors) and ``draws`` (a list
+        with one (reset draw, noise) pair or (reset draw, noise, auto-reset
+        draws) triple per round, see ``_rollout``) may be given pre-drawn;
+        otherwise they come from the trainer's generator.
         """
         dev = self.device
         if tasks is None:
@@ -199,12 +203,11 @@ class Trainer:
         t_sampling = t_proc = t_inner = t_policy = 0.0
         for step in range(self.num_inner_grad_steps + 1):
             floor = step == 0
-            reset_draw, noise = (draws[step] if draws is not None
-                                 else (None, None))
+            round_draws = tuple(draws[step]) if draws is not None else ()
+            round_draws += (None,) * (3 - len(round_draws))
             synchronize(dev)
             ts = time.time()
-            traj = self._rollout(task_params, tasks, floor, reset_draw,
-                                 noise)
+            traj = self._rollout(task_params, tasks, floor, *round_draws)
             synchronize(dev)
             t_sampling += time.time() - ts
             tp = time.time()

@@ -31,7 +31,8 @@ def test_sources_found():
     assert "promp_tpu_torch/ops/rollout_kernel.py" in SOURCES
     for module in ("envs/mujoco/model.py", "envs/mujoco/spatial.py",
                    "envs/mujoco/engine.py", "envs/mujoco/locomotion.py",
-                   "ops/substep_kernel.py", "ops/nvcc_build.py"):
+                   "envs/mujoco/rand_params.py", "ops/substep_kernel.py",
+                   "ops/nvcc_build.py"):
         assert f"promp_tpu_torch/{module}" in SOURCES, module
 
 

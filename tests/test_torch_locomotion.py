@@ -90,10 +90,14 @@ def test_step_clips_ctrl_and_keeps_the_batch_shape():
 
 
 def test_step_refuses_mods_and_bodies_it_does_not_cover():
+    # K3 takes the four rand-params keys; any other mod key raises
     eng = Engine(tmodel.get_model("half_cheetah"))
     q = torch.zeros((1, 9))
-    with pytest.raises(NotImplementedError, match="'half_cheetah'.*mods"):
-        eng.step(q, q, torch.zeros((1, 6)), 5, mods={"body_mass": q})
+    with pytest.raises(NotImplementedError,
+                       match="'half_cheetah'.*mod key 'geom_friction'"):
+        eng.step(q, q, torch.zeros((1, 6)), 5,
+                 mods={"body_mass": torch.ones((1, 7)),
+                       "geom_friction": torch.ones((1, 9, 3))})
     swim = Engine(tmodel.get_model("swimmer"))
     nv, nu = swim.model.nv, swim.model.nu
     with pytest.raises(NotImplementedError, match="'swimmer'.*spatial_ok"):

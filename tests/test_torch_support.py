@@ -12,9 +12,10 @@ backend.
 
 The JAX Trainer draws its own randomness; this module repeats its key
 splits (promp_tpu/trainer.py:98-99, 237 and 278-279; the scan engine's at
-sampling/rollout.py:64-83; the Pallas path's at trainer.py:131-135 and
-ops/pallas_rollout.py:112; a locomotion env's reset at
-envs/mujoco/locomotion.py:69-80) and hands the draws to the port.
+sampling/rollout.py:64-83 and its auto-resets' at :104-113; the Pallas
+path's at trainer.py:131-135 and ops/pallas_rollout.py:112; a locomotion
+env's reset at envs/mujoco/locomotion.py:69-80) and hands the draws to the
+port.
 
 The JAX side runs the Trainer's own jitted phases (_rollout, _process,
 _adapt, _outer) in the order of Trainer._run_phases, so that each round's
@@ -80,15 +81,18 @@ def make_port_trainer(backend, reward_type="sparse", **kw):
 
 
 def locomotion_reset_draw(env, key):
-    """The random draw of one ``LocomotionEnv.reset`` with normal qvel
-    noise (locomotion.py:69-80) in the port's ``draw`` form: (the uniform
-    qpos noise, the standard-normal qvel draw before its scaling)."""
-    assert env.qvel_noise_kind == "normal"
+    """The random draw of one ``LocomotionEnv.reset`` (locomotion.py:69-80)
+    in the port's ``draw`` form: (the uniform qpos noise, the qvel draw),
+    the qvel draw being the standard-normal draw before its scaling for
+    normal qvel noise and the uniform qvel noise itself for uniform."""
     nv = env.model.nv
     kq, kv = jax.random.split(key)
-    return (jax.random.uniform(kq, (nv,), jnp.float32, -env.qpos_noise,
-                               env.qpos_noise),
-            jax.random.normal(kv, (nv,)))
+    qpos = jax.random.uniform(kq, (nv,), jnp.float32, -env.qpos_noise,
+                              env.qpos_noise)
+    if env.qvel_noise_kind == "normal":
+        return qpos, jax.random.normal(kv, (nv,))
+    return qpos, jax.random.uniform(kv, (nv,), jnp.float32, -env.qvel_noise,
+                                    env.qvel_noise)
 
 
 def jax_reset_draws(jenv, reset_keys, tasks):
@@ -103,29 +107,38 @@ def jax_reset_draws(jenv, reset_keys, tasks):
     return obs0
 
 
-@partial(jax.jit, static_argnums=(0, 3, 4))
-def _jax_draws(jenv, tasks, key, backend, shape):
-    """(reset draw, noise) of one round; ``shape`` is (tasks, envs, T,
-    act)."""
+@partial(jax.jit, static_argnums=(0, 3, 4, 5))
+def _jax_draws(jenv, tasks, key, backend, shape, step_resets=False):
+    """(reset draw, noise) of one round, and with ``step_resets`` (scan
+    only) the draws of every step's auto-resets (rollout.py:104-113), (T,
+    tasks, envs, ...); ``shape`` is (tasks, envs, T, act)."""
     n_t, n_e, horizon, act = shape
+    split_envs = lambda k: jax.random.split(k, n_t * n_e).reshape(
+        n_t, n_e, -1)
     if backend == "scan":
         key_reset, key_scan = jax.random.split(key)
-        noise = jax.vmap(lambda k: jax.random.normal(
-            jax.random.split(k, 3)[0], (n_t, n_e, act)))(
-                jax.random.split(key_scan, horizon))
+        step_keys = jax.vmap(lambda k: jax.random.split(k, 3))(
+            jax.random.split(key_scan, horizon))
+        noise = jax.vmap(lambda k: jax.random.normal(k, (n_t, n_e, act)))(
+            step_keys[:, 0])
     else:
         key_reset, k_noise = jax.random.split(key)
         noise = jax.random.normal(k_noise, (n_t, horizon, n_e, act))
-    reset_keys = jax.random.split(key_reset, n_t * n_e).reshape(n_t, n_e, -1)
-    return jax_reset_draws(jenv, reset_keys, tasks), noise
+    out = (jax_reset_draws(jenv, split_envs(key_reset), tasks), noise)
+    if step_resets:
+        out += (jax.vmap(lambda k: jax_reset_draws(
+            jenv, split_envs(k), tasks))(step_keys[:, 2]),)
+    return out
 
 
-def _round_draws(jenv, tasks, key, backend, shape=(N_T, N_E, T, 2)):
+def _round_draws(jenv, tasks, key, backend, shape=(N_T, N_E, T, 2),
+                 step_resets=False):
     """(reset draw, noise) of one sampling round, in the port's layouts:
     noise is (T, tasks, envs, act) for "scan", (tasks, T, envs, act) for
-    "kernel"."""
+    "kernel"; with ``step_resets``, also the auto-resets' draws."""
     return jax.tree.map(lambda a: torch.tensor(np.asarray(a)),
-                        _jax_draws(jenv, tasks, key, backend, shape))
+                        _jax_draws(jenv, tasks, key, backend, shape,
+                                   step_resets))
 
 
 def check_reward_flips(got, want_rewards, goals):
