@@ -5,10 +5,13 @@
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit;
   2. build: K1 (csrc/rollout_kernel.cu), K2 (csrc/substep_chain.cu, filled
-     in for half_cheetah, walker2d and hopper) and K3
-     (csrc/substep_chain_mods.cu, for the same three bodies) compiled with
+     in for half_cheetah, walker2d and hopper) and K3 (the same template
+     with the rand-params mods, for the same three bodies) compiled with
      nvcc, one process each, all started together; each one's time and
-     ptxas report (registers, spills);
+     ptxas report (registers, spills), and for K2 and K3 the warp-split
+     schedule's figures (warps, stages a substep, the busiest part's ops,
+     shared slots and the block's shared memory) and, where the toolkit
+     has cuobjdump, the kernel's SASS instruction count;
   3. k1_vs_plain: K1 against its plain PyTorch version at the main path's
      shape (40 tasks x 20 envs x 100 steps, a (64, 64) policy) on the same
      inputs: errors, reward-branch flips and their tie margins, paid
@@ -20,19 +23,22 @@ Phases, each printing one JSON line:
   5. k2_vs_plain: K2 against its plain PyTorch version, one env step (5
      substeps) at a time from the same inputs: the states of a 100-step
      cheetah rollout at 40 x 20 with a seeded (64, 64) policy at steps 0,
-     25, 50, 75 and 99, and random states; errors, active contacts, timings;
+     25, 50, 75 and 99, and random states; then on ragged batches (801 and
+     19 random states, outputs one row longer and filled with a sentinel
+     that the padded lanes must not touch); errors, active contacts,
+     timings;
   6. trainer_cheetah: slice 2's main path, 3 ProMP meta-iterations on
      normalize(HalfCheetahRandVelEnv()) at the same settings with
      rollout_backend="scan"; K2's launches (one per env step: 2 x 100 per
      iteration), finite losses, KLs, returns and parameters, no skipped
      Adam updates, per-iteration times and forward velocities;
-  7. k3_vs_plain: K3 (csrc/substep_chain_mods.cu) against its plain
+  7. k3_vs_plain: K3 (csrc/substep_chain.cu with the mods) against its plain
      PyTorch version, one env step at a time from the same inputs, on
      walker2d (the states, actions and per-task multipliers of a 100-step
      Walker2DRandParamsEnv rollout at 40 x 20, which auto-resets, at steps
      0, 25, 50, 75 and 99, and random states with per-env multipliers),
-     hopper and half_cheetah (random states, per-env multipliers); errors,
-     active contacts, timings, bounds;
+     hopper and half_cheetah (random states, per-env multipliers), and on
+     the ragged batches as K2; errors, active contacts, timings, bounds;
   8. k2_walker_hopper: K2 on walker2d and hopper, one random-state check
      each;
   9. trainer_walker_randparams: slice 3's main path, 3 ProMP
@@ -50,8 +56,10 @@ raises, and the script exits non-zero without the final line. It needs a
 CUDA device and imports neither JAX nor the JAX package.
 """
 import csv
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -84,6 +92,10 @@ K2_STEPS = (0, 25, 50, 75, 99)       # rollout steps whose states are held
 K3_KEYS = ("body_inertia", "body_mass", "dof_damping", "friction")
 K3_BODIES = ("walker2d", "hopper", "half_cheetah")
 PLAIN_RUNS_ADDED = 3   # timed runs of the plain chains of slice 3's bodies
+# batches that leave a block's lanes partly empty: 25 full blocks and one
+# env, and one block of 19
+RAGGED_BATCHES = (801, 19)
+SENTINEL = 12345.0
 # published H100 SXM peaks at 700 W: FP32 without tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 TIMED_RUNS = 20
@@ -96,6 +108,32 @@ def emit(obj):
 def ptxas_lines(log):
     return [line.strip() for line in log.splitlines()
             if "registers" in line or "spill" in line]
+
+
+def sass_count(path):
+    """The SASS instructions in the library at ``path`` as cuobjdump lists
+    them, or None where the toolkit has no cuobjdump."""
+    from promp_tpu_torch.ops import nvcc_build
+
+    tool = os.path.join(os.path.dirname(nvcc_build.find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True)
+    if out.returncode != 0:
+        return None
+    return sum(1 for line in out.stdout.splitlines()
+               if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line))
+
+
+def block_shared_bytes(path):
+    """The dynamic shared memory a block of the K2/K3 library at ``path``
+    takes, as its template lays it out."""
+    from promp_tpu_torch.ops import nvcc_build
+
+    fn = nvcc_build.load(path).substep_chain_shared_bytes
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def median_ms(fn, runs=TIMED_RUNS):
@@ -396,6 +434,46 @@ def _hold(kind, engine, kernel, plain, sets):
     return checks, errs
 
 
+def _hold_ragged(kind, engine, n_steps, mod_keys, device):
+    """Holds the kernel, launched directly on outputs one row longer than
+    the batch and filled with SENTINEL, against the plain version on each
+    of RAGGED_BATCHES random states (with per-env multipliers for K3) at
+    the K2 bars; raises if a padded lane wrote the extra row. These
+    launches are checks and are not counted."""
+    from promp_tpu_torch.ops.substep_kernel import (
+        load_launch, substep_chain_plain)
+
+    launch = load_launch(engine, mod_keys)
+    plain = substep_chain_plain(engine, n_steps, mod_keys)
+    sets = []
+    for n in RAGGED_BATCHES:
+        gen = torch.Generator(device=device).manual_seed(n)
+        label, *ins = random_chain_inputs(engine, gen, device, bool(mod_keys),
+                                          n=n)
+        sets.append((f"{label}_ragged_{n}", *ins))
+
+    def kernel(*ins):
+        n, nv = ins[0].shape
+        outs = [torch.full((n + 1, nv), SENTINEL, device=device)
+                for _ in range(2)]
+        mods = ins[3].data_ptr() if mod_keys else None
+        err = launch(*[t.data_ptr() for t in ins[:3]], mods,
+                     *[o.data_ptr() for o in outs], n, n_steps,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{kind} launch failed with cudaError {err}")
+        torch.cuda.synchronize()
+        if not all(bool((o[n] == SENTINEL).all()) for o in outs):
+            raise RuntimeError(f"{kind} wrote past a batch of {n}")
+        return outs[0][:n], outs[1][:n]
+
+    return _hold(kind, engine, kernel, plain, sets)
+
+
+def _merge(errs, more):
+    return {k: max(errs[k], more[k]) for k in errs}
+
+
 def _chain_bound(source, n_steps, batch, nv):
     """Least time of one chain launch: the emitted ops a substep x n_steps
     x batch at the FP32 peak, against q, qd, tau (and the mods row) read
@@ -422,6 +500,8 @@ def phase_k2(device):
     plain = substep_chain_plain(engine, n_steps)
     sets = k2_inputs(env, device)
     checks, errs = _hold("K2", engine, kernel, plain, sets)
+    ragged, ragged_errs = _hold_ragged("K2", engine, n_steps, (), device)
+    checks, errs = checks + ragged, _merge(errs, ragged_errs)
     q, qd, tau = sets[0][1:]
     result = dict(phase="k2_vs_plain", model="half_cheetah", n_steps=n_steps,
                   checks=checks, tolerances=dict(q=K2_Q_TOL, qd=K2_QD_TOL))
@@ -439,17 +519,15 @@ K3_ENVS = {"walker2d": "Walker2DRandParamsEnv",
            "half_cheetah": "HalfCheetahRandParamsEnv"}
 
 
-def random_chain_inputs(engine, gen, device, mods):
-    """(label, q, qd, tau[, mods_packed]) of N_TASKS * N_ENVS random
-    states about the model's initial pose (drawn as the K2 tests draw
-    them), with per-env random multipliers (every row its own) when
-    ``mods``."""
+def random_chain_inputs(engine, gen, device, mods, n=N_TASKS * N_ENVS):
+    """(label, q, qd, tau[, mods_packed]) of ``n`` random states about the
+    model's initial pose (drawn as the K2 tests draw them), with per-env
+    random multipliers (every row its own) when ``mods``."""
     from promp_tpu_torch.envs.mujoco.rand_params import (
         sample_param_multipliers)
     from promp_tpu_torch.ops.substep_kernel import pack_mods
 
     m = engine.model
-    n = N_TASKS * N_ENVS
     init = torch.as_tensor(m.init_qpos, dtype=torch.float32, device=device)
     q = init + 0.3 * torch.randn((n, m.nv), generator=gen, device=device)
     q[:, 2] += 0.6
@@ -509,6 +587,9 @@ def phase_k3(device):
             sets, dones = k3_walker_inputs(env, device)
         sets.append(random_chain_inputs(engine, gen, device, mods=True))
         checks, errs = _hold("K3", engine, kernel, plain, sets)
+        ragged, ragged_errs = _hold_ragged("K3", engine, n_steps, K3_KEYS,
+                                           device)
+        checks, errs = checks + ragged, _merge(errs, ragged_errs)
         ins = sets[0][1:]
         result = dict(phase="k3_vs_plain", model=body, n_steps=n_steps,
                       checks=checks, rollout_dones=dones,
@@ -684,19 +765,24 @@ def main():
     from promp_tpu_torch.envs.mujoco.engine import Engine
     from promp_tpu_torch.envs.mujoco.model import get_model
     engines = {body: Engine(get_model(body)) for body in K3_BODIES}
-    jobs = [("K1", rollout_kernel.build_job()),
-            ("K2 half_cheetah", substep_kernel.build_job(
-                engines["half_cheetah"]))]
-    jobs += [(f"K3 {body}", substep_kernel.build_job(engines[body], K3_KEYS))
-             for body in K3_BODIES]
-    jobs += [(f"K2 {body}", substep_kernel.build_job(engines[body]))
-             for body in ("walker2d", "hopper")]
+    sources = [("K2 half_cheetah", engines["half_cheetah"], ())]
+    sources += [(f"K3 {body}", engines[body], K3_KEYS) for body in K3_BODIES]
+    sources += [(f"K2 {body}", engines[body], ())
+                for body in ("walker2d", "hopper")]
+    sources = [(label, substep_kernel.SubstepSource(engine, keys))
+               for label, engine, keys in sources]
+    jobs = [("K1", rollout_kernel.build_job())] + [
+        (label, substep_kernel.build_job(src)) for label, src in sources]
     t0 = time.time()
     builds = nvcc_build.build_all([job for _, job in jobs])
-    emit(dict(phase="build", seconds=time.time() - t0, libraries=[
-        dict(kernel=label, library=os.path.basename(b.path),
-             seconds=b.seconds, ptxas=ptxas_lines(b.log))
-        for (label, _), b in zip(jobs, builds)]))
+    libraries = [dict(kernel=label, library=os.path.basename(b.path),
+                      seconds=b.seconds, ptxas=ptxas_lines(b.log))
+                 for (label, _), b in zip(jobs, builds)]
+    for lib, b, (_, src) in zip(libraries[1:], builds[1:], sources):
+        lib.update(schedule=src.stats,
+                   block_shared_bytes=block_shared_bytes(b.path),
+                   sass_instructions=sass_count(b.path))
+    emit(dict(phase="build", seconds=time.time() - t0, libraries=libraries))
 
     k1 = phase_k1(device)
     k1_launches = phase_trainer(device)
@@ -724,7 +810,7 @@ def main():
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
         dict(name="K3_substep_chain_mods", route="cuda",
-             source="promp_tpu_torch/csrc/substep_chain_mods.cu",
+             source="promp_tpu_torch/csrc/substep_chain.cu",
              replaces="promp_tpu/ops/pallas_substep.py:252",
              launches=k3_launches,
              max_abs_err=max(max(r["max_abs_err"].values())

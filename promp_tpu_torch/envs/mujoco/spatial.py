@@ -157,13 +157,12 @@ class _Sym:
 
 
 class CEmitter:
-    """Back end of K2's CUDA source: each operation records one line
-    ``const float tN = <expr>;`` and returns the name ``tN``. Every
-    constant is written by ``c_float``; ``literals`` keeps each (constant,
-    literal) pair. ``nan_max``/``nan_min`` are the template's
-    NaN-propagating max/min. ``body(outputs)`` gives the lines the outputs
-    depend on (the folding helpers leave some dead ones, as the JAX trace
-    does) and the number of float operations in them."""
+    """Back end of K2's and K3's CUDA source: each operation records one
+    line ``tN = <expr>`` (``n_ops`` float operations, reading the
+    temporaries ``deps``) and returns the name ``tN``. Every constant is
+    written by ``c_float``; ``literals`` keeps each (constant, literal)
+    pair. ``nan_max``/``nan_min`` are the template's NaN-propagating
+    max/min. ops/substep_schedule.py places the lines the outputs need."""
 
     def __init__(self):
         self._lines = []                  # (expr, n_ops, deps)
@@ -184,22 +183,11 @@ class CEmitter:
         self._lines.append((expr, n_ops, deps))
         return _Sym(self, f"t{len(self._lines) - 1}")
 
-    def body(self, outputs):
-        """(lines, n_ops) of the temporaries that ``outputs`` (names) need,
-        in order."""
-        live = [False] * len(self._lines)
-        stack = [int(i) for name in outputs for i in _TEMP.findall(name)]
-        while stack:
-            i = stack.pop()
-            if not live[i]:
-                live[i] = True
-                stack.extend(self._lines[i][2])
-        lines, total = [], 0
-        for i, (expr, n_ops, _) in enumerate(self._lines):
-            if live[i]:
-                lines.append(f"const float t{i} = {expr};")
-                total += n_ops
-        return lines, total
+    @property
+    def lines(self):
+        """Every recorded ``(expr, n_ops, deps)``; temporary i is line i
+        (the folding helpers leave some dead, as the JAX trace does)."""
+        return self._lines
 
     def lift(self, c):
         return self.emit(self.operand(c), 0)

@@ -11,17 +11,25 @@ dampings and ground friction by them (K3). On CUDA tensors it launches the
 kernel or raises; on CPU tensors it runs ``substep_chain_plain``, the same
 emitted algebra run eagerly in PyTorch (envs/mujoco/spatial.py).
 
-K2's CUDA source is ``csrc/substep_chain.cu`` and K3's
-``csrc/substep_chain_mods.cu``, each with the substep generated from the
-model spec by the spatial emitter's C back end: every model constant folded
-in, and in K3 the multiplied ones read from the env's mods row. At the
-first CUDA call for a model the filled-in source is compiled with nvcc
-into a shared library with a plain C entry point (ops/nvcc_build.py) and
-loaded with ``ctypes``; never at import.
+K2 and K3 are one CUDA template, ``csrc/substep_chain.cu``, filled in for
+a model (and K3's mod keys): the substep generated from the model spec by
+the spatial emitter's C back end (every model constant folded in, and in
+K3 the multiplied ones read from the env's mods row), split by
+ops/substep_schedule.py into parts, one warp each, and stages separated by
+block barriers, one env per lane. At the first CUDA call for a model the
+filled-in source is compiled with nvcc into a shared library with a plain
+C entry point (ops/nvcc_build.py) and loaded with ``ctypes``; never at
+import.
+
+The schedule's figures for a body, on the CPU::
+
+    python -m promp_tpu_torch.ops.substep_kernel walker2d --mods
 """
 from __future__ import annotations
 
 import ctypes
+import re
+import sys
 
 import torch
 
@@ -29,13 +37,23 @@ from promp_tpu_torch.envs.mujoco.spatial import (
     MOD_BASE_NDIM, CEmitter, TorchOps, make_spatial_substep, mod_rows,
     unpack_mods)
 from promp_tpu_torch.ops import nvcc_build
+from promp_tpu_torch.ops.substep_schedule import Schedule
 
-TEMPLATE, TEMPLATE_MODS = "substep_chain.cu", "substep_chain_mods.cu"
-NV_MARK, NM_MARK, BODY_MARK = "/*@NV@*/", "/*@NM@*/", "/*@BODY@*/"
+TEMPLATE = "substep_chain.cu"
+MARKS = ("NV", "NM", "NPARTS", "SLOTS", "REGS", "BLOCKS", "PARTS")
+# warps a block (parts of the schedule), each with 32 envs, one a lane,
+# and the least weight a part may take in a stage (ops/substep_schedule.py)
+PARTS, MIN_CAP = 8, 16
 # -fmad=false: no multiply-add contraction, so K2 and K3 round op for op
 # like their plain version (csrc/substep_chain.cu); -Xptxas -v reports
-# registers and spills in the build log
+# registers, spills and shared memory in the build log
 NVCC_FLAGS = nvcc_build.BASE_FLAGS + ("-fmad=false", "-Xptxas=-v")
+_INPUT = re.compile(r"\b(q|qd|tau|m)\[(\d+)\]")
+_BLOCK_ARGS = ("int lane, float* __restrict__ r, Row* __restrict__ s, "
+               "const Row* __restrict__ q, const Row* __restrict__ qd, "
+               "const Row* __restrict__ tau, const Row* __restrict__ m, "
+               "Row* __restrict__ q2, Row* __restrict__ qd2")
+BLOCK_CALL = "block_{k}_{p}(lane, r, s, x, x + kNv, tau, m, y, y + kNv);"
 
 
 def check_mod_keys(mod_keys):
@@ -75,9 +93,11 @@ def pack_mods(model, mod_keys, mods, batch_shape):
 
 
 class SubstepSource:
-    """K2's CUDA source for one engine, or K3's with ``mod_keys``:
-    ``text``, the emitted body's ``n_ops`` float operations a substep, the
-    (constant, literal) pairs it wrote and ``nm``."""
+    """K2's CUDA source for one engine, or K3's with ``mod_keys``, split
+    over PARTS warps: ``text``, the emitted body's ``n_ops`` float
+    operations a substep, the (constant, literal) pairs it wrote, ``nm``,
+    and ``schedule`` (ops/substep_schedule.py) with its figures,
+    ``stats``."""
 
     def __init__(self, engine, mod_keys=()):
         m = engine.model
@@ -90,21 +110,75 @@ class SubstepSource:
         mods = (unpack_mods(m, mod_keys, lambda i: em.var(f"m[{i}]"))
                 if mod_keys else None)
         q2, qd2 = make_spatial_substep(engine)(em, q, qd, tau, mods=mods)
-        body, self.n_ops = em.body([x.name for x in q2 + qd2])
-        body += [f"q[{j}] = {q2[j].name};" for j in range(m.nv)]
-        body += [f"qd[{j}] = {qd2[j].name};" for j in range(m.nv)]
-        name = TEMPLATE_MODS if mod_keys else TEMPLATE
-        marks = {NV_MARK: str(m.nv), BODY_MARK: "\n".join(
-            "    " + line for line in body)}
-        if mod_keys:
-            marks[NM_MARK] = str(self.nm)
-        text = nvcc_build.read_source(name)
-        for mark, value in marks.items():
-            if text.count(mark) != 1:
-                raise ValueError(f"{name} must mark {mark} once")
-            text = text.replace(mark, value)
-        self.text = text
+        outputs = [int(x.name[1:]) for x in q2 + qd2]
+        sched = Schedule(em.lines, outputs, PARTS, MIN_CAP)
+        self.schedule, self.n_ops = sched, sched.n_ops
+        self.stats = sched.stats()
         self.literals = list(em.literals)
+        blocks = [_block_source(k, p, block, sched, em.lines, m.nv)
+                  for k, stage in enumerate(sched.blocks)
+                  for p, block in enumerate(stage) if block]
+        marks = dict(NV=m.nv, NM=self.nm, NPARTS=PARTS, SLOTS=sched.n_slots,
+                     REGS=sched.n_regs, BLOCKS="\n\n".join(blocks),
+                     PARTS="\n".join(_part_source(p, sched.blocks)
+                                     for p in range(PARTS)))
+        text = nvcc_build.read_source(TEMPLATE)
+        for mark in MARKS:
+            tag = f"/*@{mark}@*/"
+            if text.count(tag) != 1:
+                raise ValueError(f"{TEMPLATE} must mark {tag} once")
+            text = text.replace(tag, str(marks[mark]))
+        self.text = text
+
+
+def _block_source(k, p, block, sched, lines, nv):
+    """The C function ``block_k_p``: part p's operations of stage k, which
+    reads what they take from elsewhere (a constant, a shared slot or a
+    register), computes them in order, and writes the slots, registers and
+    next-state rows that later readers take."""
+    out_rows = {}
+    for j, i in enumerate(sched.outputs):
+        out_rows.setdefault(i, []).append(
+            f"q2[{j}]" if j < nv else f"qd2[{j - nv}]")
+    known, body, head = set(block), [], []
+    for i in block:
+        for d in lines[i][2]:
+            if d in known:
+                continue
+            known.add(d)
+            if d in sched.consts:
+                src = lines[d][0]
+            elif d in sched.slot_of:
+                src = f"s[{sched.slot_of[d]}][lane]"
+            else:
+                src = f"r[{sched.reg_of[d]}]"
+            head.append(f"const float t{d} = {src};")
+        expr = _INPUT.sub(r"\1[\2][lane]", lines[i][0])
+        body.append(f"const float t{i} = {expr};")
+    tail = []
+    for i in block:
+        if i in sched.slot_of:
+            tail.append(f"s[{sched.slot_of[i]}][lane] = t{i};")
+        elif i in sched.reg_of:
+            tail.append(f"r[{sched.reg_of[i]}] = t{i};")
+        tail += [f"{row}[lane] = t{i};" for row in out_rows.get(i, ())]
+    return (f"__device__ __forceinline__ void block_{k}_{p}({_BLOCK_ARGS}) "
+            "{\n" + "".join(f"  {line}\n" for line in head + body + tail)
+            + "}")
+
+
+def _part_source(p, blocks):
+    """Part p's case of the kernel: the substep loop over its blocks, a
+    stage barrier after each stage (also where it has no operations)."""
+    lines = [f"    case {p}:", "#pragma unroll 1",
+             "      for (int step = 0; step < n_steps; ++step) {",
+             "        const Row* const x = sh + (step & 1 ? kRowX1 : kRowX0);",
+             "        Row* const y = sh + (step & 1 ? kRowX0 : kRowX1);"]
+    for k, stage in enumerate(blocks):
+        if stage[p]:
+            lines.append("        " + BLOCK_CALL.format(k=k, p=p))
+        lines.append("        stage_barrier();")
+    return "\n".join(lines + ["      }", "      break;"])
 
 
 def _check(nv, nm, **tensors):
@@ -176,12 +250,14 @@ def substep_chain(engine, n_steps, mod_keys=()):
         if q.device.type != "cuda":
             raise ValueError(f"substep_chain: unsupported device {q.device}")
         if not kernel:
-            kernel.append(_load(engine, mod_keys))
+            kernel.append(load_launch(engine, mod_keys))
         q_out, qd_out = torch.empty_like(q), torch.empty_like(q)
+        mods = ins[3].data_ptr() if mod_keys else None
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = kernel[0](*[t.data_ptr() for t in ins], q_out.data_ptr(),
-                            qd_out.data_ptr(), q.shape[0], n_steps, stream)
+            err = kernel[0](*[t.data_ptr() for t in ins[:3]], mods,
+                            q_out.data_ptr(), qd_out.data_ptr(), q.shape[0],
+                            n_steps, stream)
         if err != 0:
             raise RuntimeError(f"substep_chain: {'K3' if mod_keys else 'K2'} "
                                f"launch failed with cudaError {err}")
@@ -206,20 +282,44 @@ substep_chain.launches = 0        # K2
 substep_chain.mods_launches = 0   # K3
 
 
-def build_job(engine, mod_keys=()):
-    """(name, source, flags) of K2's library for ``engine``, or K3's with
-    ``mod_keys``, for ``nvcc_build.build_all``."""
-    name = "substep_chain_mods" if mod_keys else "substep_chain"
-    return (name, SubstepSource(engine, mod_keys).text, NVCC_FLAGS)
+def build_job(source):
+    """(name, source text, flags) of a ``SubstepSource``'s library (K2's,
+    or K3's when it reads mods) for ``nvcc_build.build_all``."""
+    name = "substep_chain_mods" if source.nm else "substep_chain"
+    return (name, source.text, NVCC_FLAGS)
 
 
-def _load(engine, mod_keys):
-    lib = nvcc_build.load(nvcc_build.build(*build_job(engine, mod_keys)))
-    if mod_keys:
-        fn, n_ptrs = lib.substep_chain_mods_launch, 6
-    else:
-        fn, n_ptrs = lib.substep_chain_launch, 5
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 2 + [
+def load_launch(engine, mod_keys=()):
+    """The library's C entry point ``substep_chain_launch(q, qd, tau, mods,
+    q_out, qd_out, batch, n_steps, stream)`` through ctypes, built first if
+    needed; ``mods`` is None for K2. Returns a cudaError_t."""
+    lib = nvcc_build.load(nvcc_build.build(*build_job(
+        SubstepSource(engine, mod_keys))))
+    fn = lib.substep_chain_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def main(argv=None):
+    """Prints the schedule's figures (``SubstepSource.stats``) of a body's
+    K2, or K3 with ``--mods``, as one JSON line."""
+    import argparse
+    import json
+
+    from promp_tpu_torch.envs.mujoco.engine import Engine
+    from promp_tpu_torch.envs.mujoco.model import get_model
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("body", help="model name, e.g. walker2d")
+    ap.add_argument("--mods", action="store_true",
+                    help="K3 with the four rand-params mod keys")
+    args = ap.parse_args(argv)
+    keys = tuple(sorted(MOD_BASE_NDIM)) if args.mods else ()
+    src = SubstepSource(Engine(get_model(args.body)), keys)
+    print(json.dumps(dict(body=args.body, mod_keys=keys, **src.stats)))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

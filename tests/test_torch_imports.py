@@ -32,7 +32,7 @@ def test_sources_found():
     for module in ("envs/mujoco/model.py", "envs/mujoco/spatial.py",
                    "envs/mujoco/engine.py", "envs/mujoco/locomotion.py",
                    "envs/mujoco/rand_params.py", "ops/substep_kernel.py",
-                   "ops/nvcc_build.py"):
+                   "ops/substep_schedule.py", "ops/nvcc_build.py"):
         assert f"promp_tpu_torch/{module}" in SOURCES, module
 
 

@@ -151,18 +151,23 @@ def rollout_pair(name):
     tenv = tenvs.normalize(tenvs.make_env(name))
     obs_dim, act = jenv.obs_dim, jenv.action_dim
     jpol = JPolicy(obs_dim=obs_dim, action_dim=act, hidden_sizes=(8, 8))
-    params = dict(jpol.init(jax.random.PRNGKey(5)))
-    # a wide action noise (std 12 against the normalized bound 10): the
-    # envs fall within T steps
-    params["log_std_network/log_std_var"] = jnp.full((1, act), 2.5)
-    tparams = jpol.replicate(params, N_T)
-    tasks = jenv.sample_tasks(jax.random.PRNGKey(6), N_T)
-    key = jax.random.PRNGKey(13)
-    # one program for the rollout and its draws (one compile)
-    want, draws = jax.jit(lambda p, tk, k: (
-        jrollout(jenv, jpol, p, tk, k, N_E, T, True),
-        _jax_draws(jenv, tk, k, "scan", (N_T, N_E, T, act), True)))(
-            tparams, tasks, key)
+
+    def jax_side(k_params, k_tasks, key):
+        params = dict(jpol.init(k_params))
+        # a wide action noise (std 12 against the normalized bound 10):
+        # the envs fall within T steps
+        params["log_std_network/log_std_var"] = jnp.full((1, act), 2.5)
+        tparams = jpol.replicate(params, N_T)
+        tasks = jenv.sample_tasks(k_tasks, N_T)
+        return (tparams, tasks,
+                jrollout(jenv, jpol, tparams, tasks, key, N_E, T, True),
+                _jax_draws(jenv, tasks, key, "scan", (N_T, N_E, T, act),
+                           True))
+
+    # one program for the parameters, tasks, rollout and draws (one
+    # compile; eagerly each parameter and task draw compiles its own)
+    tparams, tasks, want, draws = jax.jit(jax_side)(
+        jax.random.PRNGKey(5), jax.random.PRNGKey(6), jax.random.PRNGKey(13))
     reset_draw, noise, reset_draws = _to_torch(draws)
     tpol = TPolicy(obs_dim=obs_dim, action_dim=act, hidden_sizes=(8, 8))
     recorder = _Recorder(tenv)

@@ -11,10 +11,11 @@ order, so they differ only where XLA and PyTorch round a transcendental
 2.7e-7 on q, 3.8e-6 on qd); these bars are ten times tighter than the JAX
 package's own K2 bars (tests/test_pallas_substep.py:82-85).
 
-The generated CUDA source cannot be compiled here (no nvcc), but its body
-is plain C: ``test_generated_body_compiled_for_the_host`` compiles it
-with the host's C++ compiler, where one is installed, and holds it against
-the plain version at the same bars.
+The generated CUDA source cannot be compiled here (no nvcc), but its block
+functions are plain C: ``test_generated_body_compiled_for_the_host``
+compiles them with the host's C++ compiler, where one is installed, runs
+them stage by stage as the card's barriers order them, and holds the result
+bitwise against the plain version (see ``staged_host_chain``).
 """
 import ctypes
 import re
@@ -125,20 +126,45 @@ def test_source_is_one_kernel_with_the_body_filled_in(source):
     text = source.text
     assert isinstance(text, str)
     assert text.count("__global__") == 1
-    assert text.count('extern "C"') == 1
+    assert text.count('extern "C"') == 2    # the launch, the shared bytes
     assert "/*@" not in text and "constexpr int kNv = 9;" in text
-    defs = re.findall(r"const float (t\d+) = (.*);", text)
-    names = [d for d, _ in defs]
-    assert len(names) == len(set(names)) == len(defs)
-    # single assignment, each temporary defined before it is read
-    seen = set()
-    for name, expr in defs:
-        assert set(re.findall(r"\bt\d+\b", expr)) <= seen, name
-        seen.add(name)
-    # every temporary is live (the emitter drops dead lines)
-    reads = set(re.findall(r"\bt\d+\b", " ".join(e for _, e in defs)))
-    outs = set(re.findall(r"qd?\[\d\] = (t\d+);", text))
-    assert set(names) == reads | outs
+    assert f"constexpr int kParts = {sk.PARTS};" in text
+    sched = source.schedule
+    # a function for each (stage, part) with operations ...
+    funcs = re.findall(r"void block_(\d+)_(\d+)\([^)]*\) \{\n(.*?)\n\}", text,
+                       re.S)
+    assert [(int(k), int(p)) for k, p, _ in funcs] == [
+        (k, p) for k, stage in enumerate(sched.blocks)
+        for p, block in enumerate(stage) if block]
+    # ... called from its part's case in stage order, with one barrier
+    # after every stage
+    cases = re.findall(r"case (\d+):\n(.*?)break;", text, re.S)
+    assert [int(p) for p, _ in cases] == list(range(sk.PARTS))
+    for p, case in cases:
+        steps = re.findall(r"block_(\d+)_%s\(|(stage_barrier)\(\)" % p, case)
+        stage, want = 0, []
+        for k, stage_ops in enumerate(sched.blocks):
+            if stage_ops[int(p)]:
+                want.append((str(k), ""))
+            want.append(("", "stage_barrier"))
+        assert steps == want
+    # each block is single-assignment and defines every temporary before
+    # it reads it; across the blocks every live operation is computed
+    # exactly once (the other definitions load a slot, a register or a
+    # constant)
+    computed = []
+    for _, _, body in funcs:
+        defs = re.findall(r"const float (t\d+) = (.*);", body)
+        names = [d for d, _ in defs]
+        assert len(names) == len(set(names))
+        seen = set()
+        for name, expr in defs:
+            assert set(re.findall(r"\bt\d+\b", expr)) <= seen, name
+            seen.add(name)
+            loaded = r"s\[\d+\]\[lane\]|r\[\d+\]|\(?-?[\d.]+e[+-]\d+f\)?"
+            if not re.fullmatch(loaded, expr):
+                computed.append(name)
+    assert len(computed) == len(set(computed)) == len(sched.part_of)
     assert 3000 < source.n_ops < 5000
 
 
@@ -150,54 +176,143 @@ def test_spatial_ok():
         spatial.make_spatial_substep(Engine(get_model("swimmer")))
 
 
+# The host build of a scheduled source: its block functions and row copies
+# as plain C++ (the barrier, the kernel and its launch cut), and an entry
+# that runs a block's stages in order, every (warp, lane) of a stage in
+# turn (parts ascending, or descending with ``reverse``), with the shared
+# rows poisoned with NaN before each block. A read of another part's same-stage value, or
+# of a slot before its write, then changes the result with the order. cosf
+# and sinf are taken in float64 and rounded once, as ``pinned`` makes the
+# plain version take them (and sqrt: torch's CPU float32 sqrt is not always
+# correctly rounded, while the host's sqrtf, like the card's, is), so that
+# the host build and the plain version compute every operation alike and can
+# be held bitwise.
 _HOST_PRELUDE = """#include <math.h>
 #include <stddef.h>
-struct Idx { int x; };
-static Idx blockIdx, threadIdx, blockDim;
-#define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define cosf(x) ((float)cos((double)(x)))
+#define sinf(x) ((float)sin((double)(x)))
 """
 
 _HOST_ENTRY = """
-extern "C" void host_chain(const float* q, const float* qd,
-                           const float* tau, float* q_out, float* qd_out,
-                           int batch, int n_steps) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (int i = 0; i < batch; ++i) {
-    blockIdx.x = i;
-    substep_chain_kernel(q, qd, tau, q_out, qd_out, batch, n_steps);
+extern "C" void host_chain(const float* q_in, const float* qd_in,
+                           const float* tau_in, const float* mods_in,
+                           float* q_out, float* qd_out, int batch,
+                           int n_steps, int reverse) {
+  static Row sh[kRows];
+  static float regs[kParts][kLanes][kRegs > 0 ? kRegs : 1];
+  for (int env0 = 0; env0 < batch; env0 += kLanes) {
+    for (int i = 0; i < kRows; ++i)
+      for (int l = 0; l < kLanes; ++l) sh[i][l] = NAN;
+    for (int tid = 0; tid < kThreads; ++tid)
+      load_rows(tid, env0, batch, q_in, qd_in, tau_in, mods_in, sh);
+    Row* s = sh + kRowS;
+    const Row* tau = sh + kRowTau;
+    const Row* m = sh + kRowM;
+    for (int step = 0; step < n_steps; ++step) {
+      const Row* x = sh + (step & 1 ? kRowX1 : kRowX0);
+      Row* y = sh + (step & 1 ? kRowX0 : kRowX1);
+@STAGES@
+    }
+    for (int tid = 0; tid < kThreads; ++tid)
+      store_rows(tid, env0, batch, sh + (n_steps & 1 ? kRowX1 : kRowX0),
+                 q_out, qd_out);
   }
 }
 """
 
+_HOST_STAGE = """      for (int w = 0; w < kParts; ++w) {
+        const int part = reverse ? kParts - 1 - w : w;
+        for (int lane = 0; lane < kLanes; ++lane) {
+          float* r = regs[part][lane];
+          switch (part) {
+@CASES@
+          }
+        }
+      }"""
 
-def test_generated_body_compiled_for_the_host(source, engine, tmp_path):
-    """K2's source with the CUDA launch replaced by a host loop over the
-    envs, compiled without contraction (as nvcc's -fmad=false): the C back
-    end's syntax, operator order, literals and NaN-propagating max/min,
-    held against the plain version."""
+
+SENTINEL = 12345.0
+
+
+@pytest.fixture
+def pinned(monkeypatch):
+    """The plain version with cos, sin and sqrt taken in float64 and
+    rounded once to float32, as the host build takes them."""
+    for fn in ("cos", "sin", "sqrt"):
+        f = getattr(torch, fn)
+        monkeypatch.setattr(spatial.TorchOps, fn, staticmethod(
+            lambda x, f=f: f(x.double()).float()))
+
+
+def staged_host_chain(source, tmp_path):
+    """``chain(q, qd, tau, mods, n_steps, reverse) -> (q2, qd2)`` over
+    numpy arrays: ``source`` built for the host with the entry above, its
+    outputs one row longer than the batch and filled with ``SENTINEL``;
+    raises if the padded lanes wrote that row. Skips without a host C++
+    compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
     text = source.text.replace("#include <cuda_runtime.h>", _HOST_PRELUDE)
-    text = text[:text.index('extern "C"')] + _HOST_ENTRY
-    (tmp_path / "k2_host.cpp").write_text(text)
-    lib_path = tmp_path / "libk2_host.so"
-    subprocess.run([cxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-o", str(lib_path), str(tmp_path / "k2_host.cpp")],
-                   check=True, capture_output=True)
+    stages = "\n".join(_HOST_STAGE.replace("@CASES@", "\n".join(
+        f"            case {p}: " + sk.BLOCK_CALL.format(k=k, p=p) + " break;"
+        for p, block in enumerate(stage) if block))
+        for k, stage in enumerate(source.schedule.blocks))
+    cut = text.index("__device__ __forceinline__ void stage_barrier()")
+    rest = text[cut:]
+    rest = rest[rest.index("\n}\n") + 3:]         # past stage_barrier's body
+    text = text[:cut] + rest
+    text = (text[:text.index("__global__")] + "}  // namespace\n"
+            + _HOST_ENTRY.replace("@STAGES@", stages))
+    cpp, lib_path = tmp_path / "staged.cpp", tmp_path / "libstaged.so"
+    cpp.write_text(text)
+    subprocess.run([cxx, "-O0", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-o", str(lib_path), str(cpp)], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
-    q, qd, tau = _batch(9, 3)
-    qd[B - 1, 4] = np.nan
-    q_out, qd_out = np.empty_like(q), np.empty_like(qd)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    lib.host_chain(ptr(q), ptr(qd), ptr(tau), ptr(q_out), ptr(qd_out), B,
-                   N_STEPS)
-    qp, qdp = sk.substep_chain_plain(engine, N_STEPS)(
-        torch.tensor(q), torch.tensor(qd), torch.tensor(tau))
-    np.testing.assert_allclose(q_out[:-1], qp.numpy()[:-1], **Q_TOL)
-    np.testing.assert_allclose(qd_out[:-1], qdp.numpy()[:-1], **QD_TOL)
-    assert np.isnan(qd_out[-1]).any() and torch.isnan(qdp[-1]).any()
+    ptr = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+    def chain(q, qd, tau, mods, n_steps, reverse):
+        b, nv = q.shape
+        q2 = np.full((b + 1, nv), SENTINEL, np.float32)
+        qd2 = np.full((b + 1, nv), SENTINEL, np.float32)
+        lib.host_chain(ptr(q), ptr(qd), ptr(tau), ptr(mods), ptr(q2),
+                       ptr(qd2), b, n_steps, int(reverse))
+        if not ((q2[b] == SENTINEL).all() and (qd2[b] == SENTINEL).all()):
+            raise AssertionError("a padded lane wrote past the batch")
+        return q2[:b], qd2[:b]
+
+    return chain
+
+
+def check_staged_source(source, chain_plain, q, qd, tau, mods, tmp_path):
+    """Holds the host build of ``source`` bitwise against ``chain_plain``
+    (the pinned plain version) on one ragged batch with a NaN row, in both
+    part orders."""
+    b = q.shape[0]
+    assert b % 32 and b > 32
+    qd = qd.copy()
+    qd[b - 1, 4] = np.nan
+    staged = staged_host_chain(source, tmp_path)
+    ins = [torch.tensor(a) for a in (q, qd, tau)] + (
+        [] if mods is None else [torch.tensor(mods)])
+    qp, qdp = (a.numpy() for a in chain_plain(*ins))
+    assert np.isnan(qdp[-1]).any() and np.isfinite(qdp[:-1]).all()
+    for reverse in (False, True):
+        q2, qd2 = staged(q, qd, tau, mods, N_STEPS, reverse)
+        np.testing.assert_array_equal(q2, qp)
+        np.testing.assert_array_equal(qd2, qdp)
+
+
+def test_generated_body_compiled_for_the_host(source, engine, pinned,
+                                              tmp_path):
+    """K2's scheduled half_cheetah source built for the host and run stage
+    by stage: the C back end's syntax, operator order, literals and
+    NaN-propagating max/min, the schedule's slots, registers and barriers,
+    and the ragged edge, held bitwise against the plain version at B = 37
+    (two blocks, 27 padded lanes)."""
+    q, qd, tau = _batch(9, 3, n=37)
+    check_staged_source(source, sk.substep_chain_plain(engine, N_STEPS), q,
+                        qd, tau, None, tmp_path)

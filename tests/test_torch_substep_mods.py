@@ -24,17 +24,16 @@ contacts amplify those ulps to 2.2e-4 on qd (1.1e-6 on q) at these
 states, the same order with and without mods (K2's plain version leaves
 the tight bars there too).
 """
-import ctypes
+import functools
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_spatial import _HOST_PRELUDE, _batch  # noqa: E402
+from test_torch_spatial import (  # noqa: E402,F401
+    _batch, check_staged_source, pinned)
 from test_torch_support import torch_single_thread  # noqa: E402,F401
 
 from promp_tpu.envs.mujoco.engine import Engine as JEngine  # noqa: E402
@@ -53,6 +52,13 @@ QD_TOL = dict(rtol=1e-4, atol=1e-4)
 JAX_TOL = (dict(rtol=1e-4, atol=1e-5), dict(rtol=1e-3, atol=1e-3))
 TOL = {"walker2d": JAX_TOL, "hopper": (Q_TOL, QD_TOL),
        "half_cheetah": (Q_TOL, QD_TOL)}
+
+
+@functools.lru_cache(maxsize=None)
+def _source(name, keys=()):
+    """The emitted source of ``name``'s K2, or K3 with ``keys``, built once
+    a module."""
+    return sk.SubstepSource(Engine(get_model(name)), keys)
 
 
 def _states(model, seed, n=B):
@@ -196,12 +202,12 @@ def test_wrapper_rejects_bad_mods():
 @pytest.mark.parametrize("name", ["walker2d", "hopper", "half_cheetah"])
 def test_k3_source_reads_the_mods_row(name):
     engine = Engine(get_model(name))
-    src = sk.SubstepSource(engine, KEYS)
+    src = _source(name, KEYS)
     assert src.nm == NM[name] == sk.n_mods(engine.model, KEYS)
     text = src.text
     assert "/*@" not in text and f"constexpr int kNm = {src.nm};" in text
     assert text.count("__global__") == 1
-    assert 'extern "C" int substep_chain_mods_launch' in text
+    assert 'extern "C" int substep_chain_launch' in text
     # every mass, damping and friction multiplier is read in the body, and
     # the inertias' where the body's rotation does not fold them away (a
     # planar body's off-plane inertia is dead, in JAX too)
@@ -209,62 +215,27 @@ def test_k3_source_reads_the_mods_row(name):
     used = {int(i) for i in re.findall(r"\bm\[(\d+)\]", text)}
     assert set(range(3 * m.nb, src.nm)) <= used <= set(range(src.nm))
     assert {i // 3 for i in used if i < 3 * m.nb} == set(range(m.nb))
-    k2 = sk.SubstepSource(engine)
+    k2 = _source(name)
     assert src.n_ops > k2.n_ops
 
 
 def test_k2_body_unchanged_without_mods():
     """Without mods K2's emitted half_cheetah body keeps its 3,729 live
     operations and reads no multiplier."""
-    src = sk.SubstepSource(Engine(get_model("half_cheetah")))
+    src = _source("half_cheetah")
     assert src.n_ops == 3729
-    assert "m[" not in src.text and "kNm" not in src.text
+    assert "m[" not in src.text and "constexpr int kNm = 0;" in src.text
 
 
-_HOST_ENTRY = """
-extern "C" void host_chain(const float* q, const float* qd,
-                           const float* tau, const float* mods,
-                           float* q_out, float* qd_out, int batch,
-                           int n_steps) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (int i = 0; i < batch; ++i) {
-    blockIdx.x = i;
-    substep_chain_mods_kernel(q, qd, tau, mods, q_out, qd_out, batch,
-                              n_steps);
-  }
-}
-"""
-
-
-def test_k3_source_compiled_for_the_host(tmp_path):
-    """K3's source with the CUDA launch replaced by a host loop over the
-    envs, compiled without contraction (as nvcc's -fmad=false), held
-    against the plain version at the same bars, with a NaN row."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
+def test_k3_source_compiled_for_the_host(pinned, tmp_path):
+    """K3's scheduled walker2d source built for the host and run stage by
+    stage (tests/test_torch_spatial.py ``staged_host_chain``), held
+    bitwise against the plain version at B = 37 with per-env multipliers
+    and a NaN row."""
     engine = Engine(get_model("walker2d"))
-    text = sk.SubstepSource(engine, KEYS).text
-    text = text.replace("#include <cuda_runtime.h>", _HOST_PRELUDE)
-    text = text[:text.index('extern "C"')] + _HOST_ENTRY
-    (tmp_path / "k3_host.cpp").write_text(text)
-    lib_path = tmp_path / "libk3_host.so"
-    subprocess.run([cxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-o", str(lib_path), str(tmp_path / "k3_host.cpp")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    q, qd, tau = _states(engine.model, 3)
+    q, qd, tau = _states(engine.model, 3, n=37)
     packed = np.ascontiguousarray(1.5 ** np.random.default_rng(3).uniform(
-        -3, 3, (B, 38)).astype(np.float32))
-    qd[B - 1, 4] = np.nan
-    q_out, qd_out = np.empty_like(q), np.empty_like(qd)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    lib.host_chain(ptr(q), ptr(qd), ptr(tau), ptr(packed), ptr(q_out),
-                   ptr(qd_out), B, N_STEPS)
-    qp, qdp = sk.substep_chain_plain(engine, N_STEPS, KEYS)(
-        torch.tensor(q), torch.tensor(qd), torch.tensor(tau),
-        torch.tensor(packed))
-    np.testing.assert_allclose(q_out[:-1], qp.numpy()[:-1], **Q_TOL)
-    np.testing.assert_allclose(qd_out[:-1], qdp.numpy()[:-1], **QD_TOL)
-    assert np.isnan(qd_out[-1]).any() and torch.isnan(qdp[-1]).any()
+        -3, 3, (37, 38)).astype(np.float32))
+    check_staged_source(_source("walker2d", KEYS),
+                        sk.substep_chain_plain(engine, N_STEPS, KEYS), q, qd,
+                        tau, packed, tmp_path)
