@@ -4,18 +4,25 @@
 
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit;
-  2. build: K1 (csrc/rollout_kernel.cu), K2 (csrc/substep_chain.cu, filled
-     in for half_cheetah, walker2d and hopper) and K3 (the same template
-     with the rand-params mods, for the same three bodies) compiled with
-     nvcc, one process each, all started together; each one's time and
-     ptxas report (registers, spills), and for K2 and K3 the warp-split
-     schedule's figures (warps, stages a substep, the busiest part's ops,
-     shared slots and the block's shared memory) and, where the toolkit
-     has cuobjdump, the kernel's SASS instruction count;
+  2. build: K1 (csrc/rollout_kernel.cu, for the (64, 64) policy and for
+     (32, 48) and (128, 128)), K2 (csrc/substep_chain.cu, filled in for half_cheetah,
+     walker2d and hopper) and K3 (the same template with the rand-params
+     mods, for the same three bodies) compiled with nvcc, one process each,
+     all started together; each one's time and ptxas report (registers,
+     spills), the block's shared memory and, where the toolkit has
+     cuobjdump, the kernel's SASS instruction count; for K1 its launch
+     geometry, for K2 and K3 the warp-split schedule's figures (warps,
+     stages a substep, the busiest part's ops, shared slots);
   3. k1_vs_plain: K1 against its plain PyTorch version at the main path's
      shape (40 tasks x 20 envs x 100 steps, a (64, 64) policy) on the same
      inputs: errors, reward-branch flips and their tie margins, paid
-     rewards and their sums, timings;
+     rewards and their sums, a sha256 of the kernel's outputs, timings
+     (one wrapper call, and the kernel alone: launches through its C entry
+     back to back), the bound and the design's floor; then the same bars
+     at the edge shapes K1_EDGES (ragged env groups, 1025 envs, one task,
+     7 steps, (32, 48) widths with W2 in registers, (128, 128) with W2 in
+     shared memory past 48 KB a block), launched into outputs one row
+     longer and filled with a sentinel that empty env slots must not touch;
   4. trainer: slice 1's main path, 3 ProMP meta-iterations on
      normalize(MetaPointEnvCorner()) at the reference settings with
      rollout_backend="kernel"; K1's launches (2 per iteration), finite
@@ -57,6 +64,7 @@ CUDA device and imports neither JAX nor the JAX package.
 """
 import csv
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -83,6 +91,17 @@ N_ITR = 3
 TOL_TRAJ, TOL_REWARD, TOL_TIE = 1e-4, 1e-5, 1e-5
 MAX_FLIPS = 8
 MAX_STEP_PROGRESS = 0.2 * 2 ** 0.5
+# K1's edge shapes (tasks, envs, steps, widths): env counts that leave the
+# last group of envs ragged, past the one-thread design's 1024 cap, one
+# task, a short horizon, and two more width pairs (a library each)
+K1_EDGES = ((N_TASKS, 19, HORIZON, HIDDEN), (N_TASKS, 33, HORIZON, HIDDEN),
+            (4, 1025, HORIZON, HIDDEN), (1, N_ENVS, HORIZON, HIDDEN),
+            (N_TASKS, N_ENVS, 7, HIDDEN), (N_TASKS, N_ENVS, HORIZON, (32, 48)),
+            (N_TASKS, N_ENVS, HORIZON, (128, 128)))
+# K1's width pairs and whether each keeps W2 in registers: (128, 128) takes
+# the shared-memory branch, at more than 48 KB of shared memory a block
+K1_WIDTHS = {HIDDEN: True, (32, 48): True, (128, 128): False}
+K1_BATCH = 20          # launches between two events for K1's own time
 # K2 against its plain version, one env step from the same inputs: the JAX
 # package's own K2 bars (tests/test_pallas_substep.py:82-85), as
 # |kernel - plain| <= atol + rtol * |plain|
@@ -126,12 +145,12 @@ def sass_count(path):
                if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line))
 
 
-def block_shared_bytes(path):
-    """The dynamic shared memory a block of the K2/K3 library at ``path``
-    takes, as its template lays it out."""
+def block_shared_bytes(path, symbol="substep_chain_shared_bytes"):
+    """The dynamic shared memory a block of the library at ``path`` takes,
+    as its source lays it out (``symbol`` returns it)."""
     from promp_tpu_torch.ops import nvcc_build
 
-    fn = nvcc_build.load(path).substep_chain_shared_bytes
+    fn = getattr(nvcc_build.load(path), symbol)
     fn.restype = ctypes.c_int
     return fn()
 
@@ -151,103 +170,194 @@ def median_ms(fn, runs=TIMED_RUNS):
     return statistics.median(times)
 
 
-def k1_inputs(device, seed=0):
-    """Random policy parameters per task (from a seed) at the main-path
-    shape, with per-task output biases that drive the point out of the
-    L1 radius so that both reward branches are taken."""
+def k1_inputs(device, seed=0, n_tasks=N_TASKS, n_envs=N_ENVS,
+              horizon=HORIZON, hidden=HIDDEN):
+    """Random policy parameters per task (from a seed), by default at the
+    main-path shape, with per-task output biases that drive the point out
+    of the L1 radius so that both reward branches are taken."""
     from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
     gen = torch.Generator(device=device).manual_seed(seed)
-    policy = GaussianMLPPolicy(obs_dim=2, action_dim=2, hidden_sizes=HIDDEN)
+    policy = GaussianMLPPolicy(obs_dim=2, action_dim=2, hidden_sizes=hidden)
     params = policy.init(gen, device)
-    task_params = {k: v.expand((N_TASKS,) + v.shape).contiguous()
+    task_params = {k: v.expand((n_tasks,) + v.shape).contiguous()
                    for k, v in params.items()}
     task_params["mean_network/output/bias"] = (
-        torch.rand((N_TASKS, 2), generator=gen, device=device) * 16.0 - 8.0)
+        torch.rand((n_tasks, 2), generator=gen, device=device) * 16.0 - 8.0)
     task_params["log_std_network/log_std_var"] = (
-        torch.rand((N_TASKS, 1, 2), generator=gen, device=device) - 0.5)
+        torch.rand((n_tasks, 1, 2), generator=gen, device=device) - 0.5)
     corners = torch.tensor([[-2.0, -2.0], [2.0, -2.0], [-2.0, 2.0],
                             [2.0, 2.0]], device=device)
-    goals = corners[torch.randint(0, 4, (N_TASKS,), generator=gen,
+    goals = corners[torch.randint(0, 4, (n_tasks,), generator=gen,
                                   device=device)]
-    obs0 = torch.rand((N_TASKS, N_ENVS, 2), generator=gen,
+    obs0 = torch.rand((n_tasks, n_envs, 2), generator=gen,
                       device=device) * 0.4 - 0.2
-    noise = torch.randn((N_TASKS, HORIZON, N_ENVS, 2), generator=gen,
+    noise = torch.randn((n_tasks, horizon, n_envs, 2), generator=gen,
                         device=device)
     return task_params, goals, obs0, noise
 
 
+def batched_ms(fn, n=K1_BATCH, runs=TIMED_RUNS // 4):
+    """Median over ``runs`` of the time of ``n`` back-to-back calls of
+    ``fn`` between two events, over ``n``: where a call's host time is
+    shorter than its launch's, the launches queue behind each other and
+    this is the card's time a launch."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def k1_bound(task_params, goals, obs0, noise):
     """Least time for K1's work on this card: every input read once and
-    every output written once, against the FP32 multiply-adds of the MLP."""
+    every output written once, against the FP32 multiply-adds of the MLP;
+    and the design's floor: the same FP32 rate shared evenly by the SMs,
+    the busiest SM running ceil(blocks / SMs) blocks of its launch
+    geometry."""
+    from promp_tpu_torch.ops.rollout_kernel import launch_geometry
     h0 = task_params["mean_network/hidden_0/kernel"].shape[-1]
     h1 = task_params["mean_network/hidden_1/kernel"].shape[-1]
-    steps = noise.shape[0] * noise.shape[1] * noise.shape[2]
-    flops = 2.0 * steps * (2 * h0 + h0 * h1 + h1 * 2)
+    n_tasks, horizon, n_envs = noise.shape[:3]
+    flops_env_step = 2.0 * (2 * h0 + h0 * h1 + h1 * 2)
+    steps = n_tasks * horizon * n_envs
+    flops = flops_env_step * steps
     in_bytes = sum(t.numel() * 4 for t in
                    (*task_params.values(), goals, obs0, noise))
     out_bytes = steps * (2 + 2 + 2 + 1) * 4  # obs, actions, means, rewards
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            flops, in_bytes + out_bytes)
+    geo = launch_geometry(n_tasks, n_envs, h0, h1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = geo.grid[0] * geo.grid[1]
+    block_flops = flops_env_step * horizon * min(geo.envs_per_block, n_envs)
+    floor_ms = -(-blocks // sms) * block_flops / (PEAK_FP32_FLOPS / sms) * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=in_bytes + out_bytes,
+                design_floor_ms=max(floor_ms, t_bytes), blocks=blocks,
+                sms=sms)
 
 
-def phase_k1(device):
-    from promp_tpu_torch.ops.rollout_kernel import (
-        pointmass_rollout, pointmass_rollout_plain, reward_tie_margin)
-    args = k1_inputs(device)
-    out = pointmass_rollout(*args)
-    ref = pointmass_rollout_plain(*args)
-    torch.cuda.synchronize()
+def _k1_compare(out, ref, goals, both_branches):
+    """K1's outputs ``out`` against the plain version's ``ref`` at the bars:
+    returns the figures, and the reason they fail the bars or None."""
+    from promp_tpu_torch.ops.rollout_kernel import reward_tie_margin
     errs = {k: float((out[k] - ref[k]).abs().max())
             for k in ("observations", "actions")}
     errs["means"] = float((out["agent_infos"]["mean"]
                            - ref["agent_infos"]["mean"]).abs().max())
-    for k, v in out.items():
-        if k != "agent_infos" and not bool(torch.isfinite(v).all()):
-            raise RuntimeError(f"K1 output {k} is not finite")
+    finite = all(bool(torch.isfinite(v).all())
+                 for k, v in out.items() if k != "agent_infos")
     flips = (out["rewards"] == 0) != (ref["rewards"] == 0)
-    agree = ~flips
     n_flips = int(flips.sum())
-    rew_err = float((out["rewards"] - ref["rewards"])[agree].abs().max())
-    margins = reward_tie_margin(ref["observations"], ref["actions"], args[1])
+    rew_err = float((out["rewards"] - ref["rewards"])[~flips].abs().max())
+    margins = reward_tie_margin(ref["observations"], ref["actions"], goals)
     flip_margin = float(margins[flips].max()) if n_flips else 0.0
     nonzero = {k: int((r["rewards"] != 0).sum())
                for k, r in (("kernel", out), ("plain", ref))}
     reward_sum = {k: float(r["rewards"].double().sum())
                   for k, r in (("kernel", out), ("plain", ref))}
+    figures = dict(max_abs_err=dict(errs, rewards_branch_agrees=rew_err),
+                   reward_branch_flips=n_flips,
+                   max_tie_margin_of_flips=flip_margin,
+                   nonzero_rewards=nonzero, reward_sum=reward_sum)
+    steps = out["rewards"].numel()
+    sum_tol = TOL_REWARD * steps + MAX_STEP_PROGRESS * n_flips
+    if not finite:
+        return figures, "an output is not finite"
+    if max(errs.values()) > TOL_TRAJ or rew_err > TOL_REWARD:
+        return figures, "it disagrees with its plain version"
+    if flip_margin >= TOL_TIE:
+        return figures, "it flips a reward branch away from a tie"
+    if n_flips > MAX_FLIPS:
+        return figures, f"it flips more than {MAX_FLIPS} reward branches"
+    if both_branches and not 0 < nonzero["plain"] < steps:
+        return figures, "one reward branch is never taken"
+    if abs(nonzero["kernel"] - nonzero["plain"]) > n_flips:
+        return figures, "it pays another number of rewards"
+    if abs(reward_sum["kernel"] - reward_sum["plain"]) > sum_tol:
+        return figures, f"its summed reward is off by more than {sum_tol}"
+    return figures, None
+
+
+def _k1_edge(device, n_tasks, n_envs, horizon, hidden):
+    """K1 at one edge shape, launched directly into outputs one row longer
+    than the rollout's and filled with SENTINEL, against its plain version
+    at the bars (the launch is a check and is not counted)."""
+    from promp_tpu_torch.ops import rollout_kernel as rk
+    # drawn on the CPU, where seed 1 takes both reward branches at every
+    # edge shape, then moved to the card
+    tp, *rest = k1_inputs("cpu", seed=1, n_tasks=n_tasks, n_envs=n_envs,
+                          horizon=horizon, hidden=hidden)
+    args = ({k: v.to(device) for k, v in tp.items()},
+            *(t.to(device) for t in rest))
+    n = n_tasks * n_envs * horizon
+    widths = (2, 2, 1, 2)   # obs, actions, rewards, means
+    outs = [torch.full((w * (n + 1),), SENTINEL, device=device)
+            for w in widths]
+    call, log_std = rk.bind_launch(*args, outs)
+    call()
+    torch.cuda.synchronize()
+    if not all(bool((o[w * n:] == SENTINEL).all())
+               for o, w in zip(outs, widths)):
+        raise RuntimeError(f"K1 wrote past a rollout of {n_tasks} x "
+                           f"{n_envs} x {horizon}")
+    shape = (n_tasks, n_envs, horizon)
+    obs, act, rew, mean = (o[:w * n].view(shape + ((w,) if w > 1 else ()))
+                           for o, w in zip(outs, widths))
+    out = dict(observations=obs, actions=act, rewards=rew,
+               agent_infos=dict(mean=mean, log_std=log_std))
+    ref = rk.pointmass_rollout_plain(*args)
+    figures, fault = _k1_compare(out, ref, args[1], both_branches=True)
+    check = dict(shape=[n_tasks, n_envs, horizon, *hidden],
+                 groups=rk.launch_geometry(n_tasks, n_envs, *hidden).grid[1],
+                 **figures)
+    if fault:
+        raise RuntimeError(f"K1 at an edge shape: {fault}: {check}")
+    return check
+
+
+def _sha256(out):
+    digest = hashlib.sha256()
+    for t in (out["observations"], out["actions"], out["rewards"],
+              out["agent_infos"]["mean"]):
+        digest.update(t.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def phase_k1(device):
+    from promp_tpu_torch.ops.rollout_kernel import (
+        bind_launch, pointmass_rollout, pointmass_rollout_plain)
+    args = k1_inputs(device)
+    out = pointmass_rollout(*args)
+    ref = pointmass_rollout_plain(*args)
+    torch.cuda.synchronize()
+    figures, fault = _k1_compare(out, ref, args[1], both_branches=True)
     result = dict(
         phase="k1_vs_plain", shape=[N_TASKS, N_ENVS, HORIZON, *HIDDEN],
-        max_abs_err=dict(errs, rewards_branch_agrees=rew_err),
-        reward_branch_flips=n_flips, max_tie_margin_of_flips=flip_margin,
-        nonzero_rewards=nonzero, reward_sum=reward_sum,
+        **figures, outputs_sha256=_sha256(out),
         tolerances=dict(trajectory=TOL_TRAJ, reward=TOL_REWARD, tie=TOL_TIE,
                         max_flips=MAX_FLIPS))
     result["ms"] = median_ms(lambda: pointmass_rollout(*args))
+    result["kernel_ms"] = batched_ms(bind_launch(*args, [
+        torch.empty_like(t) for t in (out["observations"], out["actions"],
+                                      out["rewards"],
+                                      out["agent_infos"]["mean"])])[0])
     result["plain_ms"] = median_ms(lambda: pointmass_rollout_plain(*args))
-    bound_ms, bound_by, flops, nbytes = k1_bound(*args)
-    result.update(bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                  bytes=nbytes)
+    result.update(k1_bound(*args))
     emit(result)
-    if max(errs.values()) > TOL_TRAJ or rew_err > TOL_REWARD:
-        raise RuntimeError(f"K1 disagrees with its plain version: {result}")
-    if flip_margin >= TOL_TIE:
-        raise RuntimeError(f"K1 flips a reward branch away from a tie: "
-                           f"margin {flip_margin}")
-    if n_flips > MAX_FLIPS:
-        raise RuntimeError(f"K1 flips {n_flips} reward branches, more than "
-                           f"{MAX_FLIPS}")
-    steps = out["rewards"].numel()
-    if not 0 < nonzero["plain"] < steps:
-        raise RuntimeError(f"one reward branch is never taken: {nonzero}")
-    if abs(nonzero["kernel"] - nonzero["plain"]) > n_flips:
-        raise RuntimeError(f"K1 pays {nonzero['kernel']} rewards, the plain "
-                           f"version {nonzero['plain']}")
-    sum_tol = TOL_REWARD * steps + MAX_STEP_PROGRESS * n_flips
-    if abs(reward_sum["kernel"] - reward_sum["plain"]) > sum_tol:
-        raise RuntimeError(f"K1's summed reward {reward_sum['kernel']} is off "
-                           f"the plain version's {reward_sum['plain']} by "
-                           f"more than {sum_tol}")
+    if fault:
+        raise RuntimeError(f"K1: {fault}: {result}")
+    emit(dict(phase="k1_edges", checks=[_k1_edge(device, *shape)
+                                        for shape in K1_EDGES]))
     return result
 
 
@@ -771,17 +881,30 @@ def main():
                 for body in ("walker2d", "hopper")]
     sources = [(label, substep_kernel.SubstepSource(engine, keys))
                for label, engine, keys in sources]
-    jobs = [("K1", rollout_kernel.build_job())] + [
+    k1_widths = tuple(K1_WIDTHS)
+    jobs = [(f"K1 {h0}x{h1}", rollout_kernel.build_job(h0, h1))
+            for h0, h1 in k1_widths] + [
         (label, substep_kernel.build_job(src)) for label, src in sources]
     t0 = time.time()
     builds = nvcc_build.build_all([job for _, job in jobs])
     libraries = [dict(kernel=label, library=os.path.basename(b.path),
-                      seconds=b.seconds, ptxas=ptxas_lines(b.log))
+                      seconds=b.seconds, ptxas=ptxas_lines(b.log),
+                      sass_instructions=sass_count(b.path))
                  for (label, _), b in zip(jobs, builds)]
-    for lib, b, (_, src) in zip(libraries[1:], builds[1:], sources):
+    for lib, b, (h0, h1) in zip(libraries, builds, k1_widths):
+        geo = rollout_kernel.launch_geometry(N_TASKS, N_ENVS, h0, h1)
+        shared = block_shared_bytes(b.path, "pointmass_rollout_shared_bytes")
+        if shared != geo.shared_bytes:
+            raise RuntimeError(f"K1 {h0}x{h1}: the source lays out {shared} "
+                               f"B a block, launch_geometry {geo}")
+        if geo.w2_in_registers != K1_WIDTHS[(h0, h1)]:
+            raise RuntimeError(f"K1 {h0}x{h1}: W2 is not where K1_WIDTHS "
+                               f"puts it: {geo}")
+        lib.update(block_shared_bytes=shared, geometry=geo._asdict())
+    k = len(k1_widths)
+    for lib, b, (_, src) in zip(libraries[k:], builds[k:], sources):
         lib.update(schedule=src.stats,
-                   block_shared_bytes=block_shared_bytes(b.path),
-                   sass_instructions=sass_count(b.path))
+                   block_shared_bytes=block_shared_bytes(b.path))
     emit(dict(phase="build", seconds=time.time() - t0, libraries=libraries))
 
     k1 = phase_k1(device)
@@ -801,7 +924,8 @@ def main():
              launches=k1_launches,
              max_abs_err=max(k1["max_abs_err"].values()),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
+             bound_by=k1["bound_by"], design_floor_ms=k1["design_floor_ms"],
+             kernel_ms=k1["kernel_ms"], library_ms=None),
         dict(name="K2_substep_chain", route="cuda",
              source="promp_tpu_torch/csrc/substep_chain.cu",
              replaces="promp_tpu/ops/pallas_substep.py:143",

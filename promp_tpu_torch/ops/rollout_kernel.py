@@ -2,60 +2,118 @@
 
 ``pointmass_rollout`` runs the whole rollout of MetaPointEnvCorner (sparse
 reward) under ``normalize`` (scale 10) with a 2-hidden-layer tanh MLP
-policy, one CUDA block per meta-task (``csrc/rollout_kernel.cu``). The
-action noise comes in pre-drawn, so the kernel is a deterministic function
-of (params, goals, obs0, noise).
+policy (``csrc/rollout_kernel.cu``): one CUDA warp per env, its lanes
+over the hidden units with their weights in registers, ``ENVS_PER_BLOCK``
+envs of one task a block. The action noise comes in pre-drawn, so the
+kernel is a deterministic function of (params, goals, obs0, noise).
 
 On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
 it runs ``pointmass_rollout_plain``, the same arithmetic in PyTorch tensor
-code. The CUDA source is compiled with ``nvcc`` into a shared library with
-a plain C entry point at the first CUDA call (never at import) and loaded
-with ``ctypes`` (ops/nvcc_build.py).
+code. The CUDA source is compiled with ``nvcc``, once per width pair, into
+a shared library with a plain C entry point at the first CUDA call (never
+at import) and loaded with ``ctypes`` (ops/nvcc_build.py).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from promp_tpu_torch.ops import nvcc_build
 
 SOURCE = "rollout_kernel.cu"
-NVCC_FLAGS = nvcc_build.BASE_FLAGS
+# no fast math, nvcc's default contraction as in the first design; -v prints
+# ptxas's registers and spills
+NVCC_FLAGS = nvcc_build.BASE_FLAGS + ("-Xptxas=-v",)
 
 SCALE = 10.0       # NormalizedEnv normalization_scale
 ACT_BOUND = 0.2    # MetaPointEnvCorner action bound
 SPARSE_RADIUS = 0.5
-MAX_ENVS = 1024    # one thread per env, one block per task
+
+ENVS_PER_BLOCK = 2           # envs a block, one warp each (the .cu's kE)
+REGISTER_WEIGHTS_MAX = 128   # a lane's W2 columns this long stay in registers
+MAX_SHARED_BYTES = 232448    # dynamic shared memory of a block on sm_90
+MAX_GROUPS = 65535           # the grid's second dimension
 
 PARAM_KEYS = ("mean_network/hidden_0/kernel", "mean_network/hidden_0/bias",
               "mean_network/hidden_1/kernel", "mean_network/hidden_1/bias",
               "mean_network/output/kernel", "mean_network/output/bias",
               "log_std_network/log_std_var")
 
-_lib = None
+
+class Geometry(NamedTuple):
+    """K1's launch: ``grid`` (tasks, env groups) of ``threads`` a block,
+    ``envs_per_block`` (one warp an env), ``units_per_lane`` (of the
+    second hidden layer: lane l owns units l, l + 32, ...), the block's
+    ``shared_bytes`` and whether a lane's W2 columns sit in registers
+    (``w2_in_registers``) or in shared memory."""
+    grid: tuple
+    threads: int
+    envs_per_block: int
+    units_per_lane: int
+    shared_bytes: int
+    w2_in_registers: bool
 
 
-def build_job():
-    """(name, source, flags) of K1's library, for ``nvcc_build.build_all``."""
-    return ("rollout_kernel", nvcc_build.read_source(SOURCE), NVCC_FLAGS)
+def _round4(n):
+    return -(-n // 4) * 4
 
 
-def build():
-    """Compile K1's library unless it exists; returns its path."""
-    return nvcc_build.build(*build_job())
+def launch_geometry(n_tasks, n_envs, h0, h1):
+    """The geometry of K1's launch for ``n_tasks`` x ``n_envs`` envs and
+    hidden widths (h0, h1). The W2 placement is chosen here, by width, and
+    passed to the build; the rest is csrc/rollout_kernel.cu's (its shared
+    layout: W3, a row of each hidden layer a warp and, for long columns,
+    W2), which ``load_launch`` holds against the library's. Raises where
+    the card cannot take it."""
+    groups = -(-n_envs // ENVS_PER_BLOCK)
+    if groups > MAX_GROUPS:
+        raise ValueError(f"pointmass_rollout: {n_envs} envs a task make "
+                         f"{groups} groups of {ENVS_PER_BLOCK}, more than "
+                         f"the grid's {MAX_GROUPS}")
+    units = -(-h1 // 32)
+    w2_in_registers = units * h0 <= REGISTER_WEIGHTS_MAX
+    floats = (2 * _round4(h1) + ENVS_PER_BLOCK * (_round4(h0) + _round4(h1))
+              + (0 if w2_in_registers else h0 * h1))
+    if 4 * floats > MAX_SHARED_BYTES:
+        raise ValueError(f"pointmass_rollout: widths ({h0}, {h1}) need "
+                         f"{4 * floats} B of shared memory a block, more "
+                         f"than {MAX_SHARED_BYTES}")
+    return Geometry((n_tasks, groups), 32 * ENVS_PER_BLOCK, ENVS_PER_BLOCK,
+                    units, 4 * floats, w2_in_registers)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = nvcc_build.load(build())
+def build_job(h0=64, h1=64):
+    """(name, source, flags) of K1's library for hidden widths (h0, h1),
+    for ``nvcc_build.build_all``."""
+    geo = launch_geometry(1, 1, h0, h1)
+    defines = (f"-DK1_H0={h0}", f"-DK1_H1={h1}",
+               f"-DK1_W2_REG={int(geo.w2_in_registers)}")
+    return (f"rollout_kernel_{h0}x{h1}", nvcc_build.read_source(SOURCE),
+            NVCC_FLAGS + defines)
+
+
+_launchers = {}
+
+
+def load_launch(h0, h1):
+    """The library's C entry point ``pointmass_rollout_launch`` for (h0, h1)
+    through ctypes, built first if needed; raises if the library lays out
+    another block than ``launch_geometry``."""
+    if (h0, h1) not in _launchers:
+        lib = nvcc_build.load(nvcc_build.build(*build_job(h0, h1)))
+        want = launch_geometry(1, 1, h0, h1).shared_bytes
+        got = lib.pointmass_rollout_shared_bytes()
+        if got != want:
+            raise RuntimeError(f"pointmass_rollout: the library lays out "
+                               f"{got} B a block, launch_geometry {want}")
         fn = lib.pointmass_rollout_launch
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _launchers[(h0, h1)] = fn
+    return _launchers[(h0, h1)]
 
 
 def _unpack(task_params):
@@ -68,9 +126,6 @@ def _check_inputs(task_params, goals, obs0, noise):
         raise ValueError(f"pointmass_rollout: obs0 {tuple(obs0.shape)} and "
                          f"noise {tuple(noise.shape)} must be 3-D and 4-D")
     n_tasks, n_envs = obs0.shape[:2]
-    if n_envs > MAX_ENVS:
-        raise ValueError(f"pointmass_rollout: {n_envs} envs a task, more "
-                         f"than the {MAX_ENVS} threads of one block")
     horizon = noise.shape[1]
     w1 = task_params[PARAM_KEYS[0]]
     h0, h1 = w1.shape[-1], task_params[PARAM_KEYS[2]].shape[-1]
@@ -122,28 +177,72 @@ def pointmass_rollout(task_params, goals, obs0, noise):
     if obs0.device.type != "cuda":
         raise ValueError(f"pointmass_rollout: unsupported device {obs0.device}")
 
-    lib = _load()
-    w1, b1, w2, b2, w3, b3, log_std = _unpack(task_params)
-    log_std = log_std.contiguous()
     kw = dict(dtype=torch.float32, device=obs0.device)
     obs = torch.empty((n_tasks, n_envs, horizon, 2), **kw)
     act = torch.empty((n_tasks, n_envs, horizon, 2), **kw)
     rew = torch.empty((n_tasks, n_envs, horizon), **kw)
     mean = torch.empty((n_tasks, n_envs, horizon, 2), **kw)
-    with torch.cuda.device(obs0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pointmass_rollout_launch(
-            *(t.data_ptr() for t in (goals, w1, b1, w2, b2, w3, b3, log_std,
-                                     obs0, noise, obs, act, rew, mean)),
-            n_tasks, n_envs, horizon, h0, h1, stream)
-    if err != 0:
-        raise RuntimeError(f"pointmass_rollout: kernel launch failed with "
-                           f"cudaError {err}")
+    call, log_std = _bind((n_tasks, n_envs, horizon, h0, h1), task_params,
+                          goals, obs0, noise, (obs, act, rew, mean))
+    call()
     pointmass_rollout.launches += 1
     return _result(obs, act, rew, mean, log_std)
 
 
 pointmass_rollout.launches = 0
+
+
+def _check_outputs(obs0, dims, outs):
+    n_tasks, n_envs, horizon = dims[:3]
+    n = n_tasks * n_envs * horizon
+    for name, t, size in zip(("obs", "act", "rew", "mean"), outs,
+                             (2 * n, 2 * n, n, 2 * n)):
+        if (t.device != obs0.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.numel() < size):
+            raise ValueError(f"pointmass_rollout: output {name} must be a "
+                             f"contiguous float32 tensor of at least {size} "
+                             f"elements on {obs0.device}")
+
+
+def bind_launch(task_params, goals, obs0, noise, outs):
+    """Checks K1's CUDA inputs and ``outs``, the contiguous float32 obs,
+    actions, rewards and means it writes the first (n_tasks, n_envs, T, 2)
+    elements of ((n_tasks, n_envs, T) for rewards), and returns (``call``,
+    the (n_tasks, 2) log-std the kernel reads): ``call()`` launches K1 on
+    them through the C entry alone on the stream current now, raising if
+    the launch is refused, so that repeated calls time the kernel without
+    the wrapper's host work. Counts no launch: ``pointmass_rollout``
+    does."""
+    dims = _check_inputs(task_params, goals, obs0, noise)
+    if obs0.device.type != "cuda":
+        raise ValueError(f"pointmass_rollout: launch on {obs0.device}")
+    _check_outputs(obs0, dims, outs)
+    return _bind(dims, task_params, goals, obs0, noise, outs)
+
+
+def _bind(dims, task_params, goals, obs0, noise, outs):
+    """``bind_launch`` on inputs and outputs already checked; ``dims`` are
+    ``_check_inputs``'s."""
+    n_tasks, n_envs, horizon, h0, h1 = dims
+    launch_geometry(n_tasks, n_envs, h0, h1)   # raises past the card's limits
+    fn = load_launch(h0, h1)
+    w1, b1, w2, b2, w3, b3, log_std = _unpack(task_params)
+    log_std = log_std.contiguous()
+    stream = torch.cuda.current_stream(obs0.device).cuda_stream
+    tensors = (goals, w1, b1, w2, b2, w3, b3, log_std, obs0, noise, *outs)
+    args = (*(t.data_ptr() for t in tensors), n_tasks, n_envs, horizon,
+            stream)
+
+    def call():
+        # ``tensors`` stays referenced, so every pointer in ``args`` lives
+        # as long as ``call``
+        with torch.cuda.device(tensors[0].device):
+            err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"pointmass_rollout: kernel launch failed "
+                               f"with cudaError {err}")
+
+    return call, log_std
 
 
 def _result(obs, act, rew, mean, log_std):
@@ -217,3 +316,4 @@ def reward_tie_margin(observations, actions, goals):
     goal_d = torch.sqrt(torch.sum((new - goals[..., 0, :]) ** 2, dim=-1))
     radius = torch.abs(torch.sum(torch.abs(new), dim=-1) - SPARSE_RADIUS)
     return torch.minimum(radius, torch.abs(goal_d - other))
+

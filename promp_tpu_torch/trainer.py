@@ -25,24 +25,13 @@ from promp_tpu_torch.ops.rollout_kernel import pointmass_rollout
 from promp_tpu_torch.optimizers.adam import tree_map
 from promp_tpu_torch.sampling.rollout import rollout
 from promp_tpu_torch.utils import logger
+from promp_tpu_torch.utils.misc import resolve_device
 
 LOG_STD_KEY = "log_std_network/log_std_var"
 
 
 def _to_host(tree):
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
-
-
-def resolve_device(device):
-    """``torch.device(device)``; raises if it names CUDA and there is no
-    card. The Trainer never falls back to the CPU on its own: a CPU run is
-    asked for with ``device="cpu"``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "promp_tpu_torch: device 'cuda' requested but no CUDA device is "
-            "available; pass device='cpu' to run on the CPU")
-    return device
 
 
 def synchronize(device):

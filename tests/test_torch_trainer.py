@@ -76,9 +76,13 @@ def test_train_snapshot_and_restore(tmp_path):
 
 def test_set_seed_returns_a_seeded_generator():
     from promp_tpu_torch.utils.misc import set_seed
-    a = torch.rand(3, generator=set_seed(5))
-    assert torch.equal(a, torch.rand(3, generator=set_seed(5)))
-    set_seed(5)
+    a = torch.rand(3, generator=set_seed(5, "cpu"))
+    assert torch.equal(a, torch.rand(3, generator=set_seed(5, "cpu")))
+    set_seed(5, "cpu")
     draws = (np.random.rand(), torch.rand(()).item())
-    set_seed(5)
+    set_seed(5, "cpu")
     assert (np.random.rand(), torch.rand(()).item()) == draws
+    # like the Trainer, it asks for the card unless told otherwise
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            set_seed(5)
