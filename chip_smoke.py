@@ -5,14 +5,15 @@
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit;
   2. build: K1 (csrc/rollout_kernel.cu, for the (64, 64) policy and for
-     (32, 48) and (128, 128)), K2 (csrc/substep_chain.cu, filled in for half_cheetah,
-     walker2d and hopper) and K3 (the same template with the rand-params
-     mods, for the same three bodies) compiled with nvcc, one process each,
-     all started together; each one's time and ptxas report (registers,
-     spills), the block's shared memory and, where the toolkit has
-     cuobjdump, the kernel's SASS instruction count; for K1 its launch
-     geometry, for K2 and K3 the warp-split schedule's figures (warps,
-     stages a substep, the busiest part's ops, shared slots);
+     (32, 48) and (128, 128)), K2 (csrc/substep_chain.cu, filled in for
+     half_cheetah, walker2d, hopper, ant and humanoid) and K3 (the same
+     template with the rand-params mods, for the first three bodies)
+     compiled with nvcc, one process each, all started together; each
+     one's time and ptxas report (registers, spills), the block's shared
+     memory and, where the toolkit has cuobjdump, the kernel's SASS
+     instruction count; for K1 its launch geometry, for K2 and K3 the
+     warp-split schedule's figures (warps, stages a substep, the busiest
+     part's ops, shared slots);
   3. k1_vs_plain: K1 against its plain PyTorch version at the main path's
      shape (40 tasks x 20 envs x 100 steps, a (64, 64) policy) on the same
      inputs: errors, reward-branch flips and their tie margins, paid
@@ -54,9 +55,23 @@ Phases, each printing one JSON line:
      episodes that ended inside the window (the auto-reset branch ran on
      the card), finite losses, KLs, returns and parameters, no skipped Adam
      updates, per-iteration times;
- 10. step_ops: the aten operations one env step of the scan engine
-     dispatches on the cheetah and on the walker, with and without the
-     walker's auto-reset branch, and one pack of the walker's multipliers.
+ 10. k2_ant_humanoid: K2 against its plain version on ant and humanoid
+     (10 substeps an env step), as k2_vs_plain: the states of a 100-step
+     rollout of normalize(AntRandGoalEnv()) and of
+     normalize(HumanoidRandDirecEnv()) at 40 x 20 with a seeded (64, 64)
+     policy at steps 0, 25, 50, 75 and 99, random states, and the ragged
+     batches; errors, active contacts, timings, bounds, the grid's blocks
+     against the card's SMs;
+ 11. trainer_ant and trainer_humanoid: slice 6's main path, 3 ProMP
+     meta-iterations each on normalize(AntRandGoalEnv()) and
+     normalize(HumanoidRandDirecEnv()) at the same settings; K2's launches
+     (2 x 100 per iteration) and none of K3's, the humanoid's episodes
+     that ended inside the window, finite losses, KLs, returns and
+     parameters, no skipped Adam updates, per-iteration times;
+ 12. step_ops: the aten operations one env step of the scan engine
+     dispatches on the cheetah, the ant, the humanoid and the walker (with
+     and without the walker's auto-reset branch), and one pack of the
+     walker's multipliers.
 Then the {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi prints them, and the final {"ok": true, ...} line. Any failure
 raises, and the script exits non-zero without the final line. It needs a
@@ -110,6 +125,8 @@ K2_STEPS = (0, 25, 50, 75, 99)       # rollout steps whose states are held
 # K3 holds to the same bars; the rand-params multipliers in the JAX order
 K3_KEYS = ("body_inertia", "body_mass", "dof_damping", "friction")
 K3_BODIES = ("walker2d", "hopper", "half_cheetah")
+# slice 6's envs (bench.py's "ant" and "humanoid" workloads), K2 only
+K2_ENVS_3D = {"ant": "AntRandGoalEnv", "humanoid": "HumanoidRandDirecEnv"}
 PLAIN_RUNS_ADDED = 3   # timed runs of the plain chains of slice 3's bodies
 # batches that leave a block's lanes partly empty: 25 full blocks and one
 # env, and one block of 19
@@ -741,6 +758,75 @@ def phase_k2_walker_hopper(device):
     return out
 
 
+def phase_k2_ant_humanoid(device):
+    """K2 against its plain version on the ant and the humanoid, as
+    ``phase_k2``: rollout, random and ragged states at the K2 bars; its
+    time, the plain version's, the bound, and the share of the card's SMs
+    that the launch's blocks cover."""
+    from promp_tpu_torch.envs import make_env, normalize
+    from promp_tpu_torch.ops.substep_kernel import (
+        SubstepSource, substep_chain, substep_chain_plain)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for body, env_name in K2_ENVS_3D.items():
+        env = normalize(make_env(env_name))
+        engine = env.env.engine
+        n_steps = env.env.frame_skip * engine.n_substeps
+        kernel = substep_chain(engine, n_steps)
+        plain = substep_chain_plain(engine, n_steps)
+        sets = k2_inputs(env, device)
+        checks, errs = _hold("K2", engine, kernel, plain, sets)
+        ragged, ragged_errs = _hold_ragged("K2", engine, n_steps, (), device)
+        checks, errs = checks + ragged, _merge(errs, ragged_errs)
+        q, qd, tau = sets[0][1:]
+        source = SubstepSource(engine)
+        blocks = -(-q.shape[0] // 32)
+        result = dict(phase="k2_ant_humanoid", model=body, env=env_name,
+                      n_steps=n_steps, checks=checks, parts=source.parts,
+                      block_bytes=source.block_bytes, blocks=blocks, sms=sms,
+                      sm_share=min(blocks, sms) / sms,
+                      tolerances=dict(q=K2_Q_TOL, qd=K2_QD_TOL))
+        result["ms"] = median_ms(lambda: kernel(q, qd, tau))
+        result["plain_ms"] = median_ms(lambda: plain(q, qd, tau),
+                                       runs=PLAIN_RUNS_ADDED)
+        result.update(_chain_bound(source, n_steps, q.shape[0],
+                                   engine.model.nv), max_abs_err=errs)
+        emit(result)
+        results[body] = result
+    return results
+
+
+def phase_trainer_3d(device, body):
+    """3 meta-iterations on ``normalize(make_env(K2_ENVS_3D[body]))``: K2's
+    launches 2 x 100 an iteration and none of K3's; on the humanoid,
+    episodes end inside the window."""
+    from promp_tpu_torch.envs import make_env, normalize
+    from promp_tpu_torch.ops.substep_kernel import substep_chain
+
+    env = normalize(make_env(K2_ENVS_3D[body]))
+    extra = ("Time-MAMLSteps",) + tuple(
+        f"Step_{k}-Env-{key}" for k in (0, 1)
+        for key in env.diagnostics_keys)
+    iterations, seconds, launches, dones = _train(
+        env, device, "scan", {"k2": (substep_chain, "launches"),
+                              "k3": (substep_chain, "mods_launches")},
+        extra_keys=extra)
+    emit(dict(phase=f"trainer_{body}", env=K2_ENVS_3D[body],
+              iterations=iterations, seconds=seconds,
+              k2_launches=launches["k2"], k3_launches=launches["k3"],
+              dones=dones))
+    if launches["k2"] != 2 * HORIZON * N_ITR or launches["k3"]:
+        raise RuntimeError(f"K2 launched {launches['k2']} and K3 "
+                           f"{launches['k3']} times in {N_ITR} {body} "
+                           f"iterations, expected {2 * HORIZON * N_ITR} "
+                           "and 0")
+    if body == "humanoid" and not dones:
+        raise RuntimeError("no humanoid episode ended inside a round: the "
+                           "auto-reset branch did not run")
+    return launches["k2"]
+
+
 class _NeverDone:
     """An env wrapper whose episodes never end: the rollout skips its
     auto-reset branch."""
@@ -773,9 +859,9 @@ def _dispatched_ops(fn):
 
 def phase_step_ops(device):
     """aten operations a scan-engine env step dispatches at the main path's
-    shape (a 2-step rollout minus a 1-step one): the cheetah's, the
-    walker's with and without its auto-reset branch, and one pack of the
-    walker's multipliers (inside each walker step)."""
+    shape (a 2-step rollout minus a 1-step one): the cheetah's, the ant's,
+    the humanoid's, the walker's with and without its auto-reset branch,
+    and one pack of the walker's multipliers (inside each walker step)."""
     from promp_tpu_torch.envs import make_env, normalize
     from promp_tpu_torch.ops.substep_kernel import pack_mods
     from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
@@ -795,12 +881,14 @@ def phase_step_ops(device):
 
     cheetah = normalize(make_env("HalfCheetahRandVelEnv"))
     walker = normalize(make_env("Walker2DRandParamsEnv"))
+    bodies_3d = {body: per_step(normalize(make_env(name)))
+                 for body, name in K2_ENVS_3D.items()}
     tasks = walker.sample_tasks(torch.Generator(device=device).manual_seed(4),
                                 N_TASKS, device)
     task_b = {k: v[:, None].expand((N_TASKS, N_ENVS) + v.shape[1:])
               for k, v in tasks.items()}
     result = dict(
-        phase="step_ops", cheetah=per_step(cheetah),
+        phase="step_ops", cheetah=per_step(cheetah), **bodies_3d,
         walker=per_step(walker), walker_never_done=per_step(
             _NeverDone(walker)),
         walker_pack_mods=_dispatched_ops(lambda: pack_mods(
@@ -874,11 +962,14 @@ def main():
 
     from promp_tpu_torch.envs.mujoco.engine import Engine
     from promp_tpu_torch.envs.mujoco.model import get_model
+    from promp_tpu_torch.envs import make_env
     engines = {body: Engine(get_model(body)) for body in K3_BODIES}
     sources = [("K2 half_cheetah", engines["half_cheetah"], ())]
     sources += [(f"K3 {body}", engines[body], K3_KEYS) for body in K3_BODIES]
     sources += [(f"K2 {body}", engines[body], ())
                 for body in ("walker2d", "hopper")]
+    sources += [(f"K2 {body}", make_env(name).engine, ())
+                for body, name in K2_ENVS_3D.items()]
     sources = [(label, substep_kernel.SubstepSource(engine, keys))
                for label, engine, keys in sources]
     k1_widths = tuple(K1_WIDTHS)
@@ -903,8 +994,13 @@ def main():
         lib.update(block_shared_bytes=shared, geometry=geo._asdict())
     k = len(k1_widths)
     for lib, b, (_, src) in zip(libraries[k:], builds[k:], sources):
-        lib.update(schedule=src.stats,
-                   block_shared_bytes=block_shared_bytes(b.path))
+        shared = block_shared_bytes(b.path)
+        if shared != src.block_bytes:
+            raise RuntimeError(f"{lib['kernel']}: the source lays out "
+                               f"{shared} B a block, SubstepSource "
+                               f"{src.block_bytes}")
+        lib.update(schedule=src.stats, parts=src.parts,
+                   block_shared_bytes=shared)
     emit(dict(phase="build", seconds=time.time() - t0, libraries=libraries))
 
     k1 = phase_k1(device)
@@ -914,6 +1010,9 @@ def main():
     k3 = phase_k3(device)
     phase_k2_walker_hopper(device)
     k3_launches = phase_trainer_walker(device)
+    k2_3d = phase_k2_ant_humanoid(device)
+    k2_3d_launches = {body: phase_trainer_3d(device, body)
+                      for body in K2_ENVS_3D}
     phase_step_ops(device)
 
     k3w = k3["walker2d"]
@@ -941,7 +1040,15 @@ def main():
                              for r in k3.values()),
              ms=k3w["ms"], plain_ms=k3w["plain_ms"],
              bound_ms=k3w["bound_ms"], bound_by=k3w["bound_by"],
-             library_ms=None)]})
+             library_ms=None)] + [
+        dict(name=f"K2_substep_chain_{body}", route="cuda",
+             source="promp_tpu_torch/csrc/substep_chain.cu",
+             replaces="promp_tpu/ops/pallas_substep.py:143",
+             launches=k2_3d_launches[body],
+             max_abs_err=max(r["max_abs_err"].values()),
+             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], parts=r["parts"], library_ms=None)
+        for body, r in k2_3d.items()]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

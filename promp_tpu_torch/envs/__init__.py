@@ -7,3 +7,7 @@ from promp_tpu_torch.envs.mujoco.locomotion import (  # noqa: F401
     Walker2DRandDirecEnv, Walker2DRandVelEnv)
 from promp_tpu_torch.envs.mujoco.rand_params import (  # noqa: F401
     HalfCheetahRandParamsEnv, HopperRandParamsEnv, Walker2DRandParamsEnv)
+from promp_tpu_torch.envs.mujoco.ant import (  # noqa: F401
+    AntRandDirec2DEnv, AntRandDirecEnv, AntRandGoalEnv)
+from promp_tpu_torch.envs.mujoco.humanoid import (  # noqa: F401
+    HumanoidRandDirec2DEnv, HumanoidRandDirecEnv)

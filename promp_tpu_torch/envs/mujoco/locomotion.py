@@ -71,6 +71,10 @@ class LocomotionEnv(TaskEnv):
         (..., nv) tensors (the qpos noise, the qvel draw): the qvel draw is
         the N(0, 1) draw before its scaling for "normal", the qvel noise
         itself for "uniform"."""
+        state = self._reset_state(task, generator, draw)
+        return state, self._obs(state, task)
+
+    def _reset_state(self, task, generator, draw):
         m = self.model
         shape = task_batch_shape(task, self.task_event_ndim) + (m.nv,)
         kw = dict(dtype=torch.float32, device=task_leaf(task).device)
@@ -86,8 +90,7 @@ class LocomotionEnv(TaskEnv):
         qpos = torch.as_tensor(m.init_qpos, **kw) + draw[0]
         qvel = (draw[1] * self.qvel_noise if self.qvel_noise_kind == "normal"
                 else draw[1])
-        state = {"q": qpos, "qd": qvel}
-        return state, self._obs(state, task)
+        return {"q": qpos, "qd": qvel}
 
     def _advance(self, state, action, task):
         q, qd = self.engine.step(state["q"], state["qd"], action,
@@ -180,6 +183,12 @@ class HalfCheetahRandDirecEnv(HalfCheetahBase):
 # ------------------------------------------------------------------ Walker2d
 def _ctrl_sq(action):
     return torch.sum(torch.square(action), dim=-1)
+
+
+def _finite(state):
+    """Whether every coordinate and velocity of each env is finite."""
+    return (torch.all(torch.isfinite(state["q"]), dim=-1)
+            & torch.all(torch.isfinite(state["qd"]), dim=-1))
 
 
 @dataclass(frozen=True)

@@ -97,6 +97,25 @@ class ChainModel:
     def nu(self):
         return len(self.act_dof)
 
+    def ancestor_mask(self):
+        """(nb, nv) 1.0 where dof j moves body b: j's body is b or one of
+        b's ancestors. Computed once a model (a read-only array)."""
+        mask = self.__dict__.get("_ancestor_mask")
+        if mask is None:
+            mask = np.zeros((self.nb, self.nv), np.float32)
+            for b in range(self.nb):
+                chain = []
+                cur = b
+                while cur >= 0:
+                    chain.append(cur)
+                    cur = self.body_parent[cur]
+                for j in range(self.nv):
+                    if self.jnt_body[j] in chain:
+                        mask[b, j] = 1.0
+            mask.setflags(write=False)
+            self.__dict__["_ancestor_mask"] = mask
+        return mask
+
 
 _ARRAY_FIELDS = [
     "body_pos", "body_quat", "body_mass", "body_inertia", "body_ipos",

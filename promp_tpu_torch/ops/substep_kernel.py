@@ -41,9 +41,12 @@ from promp_tpu_torch.ops.substep_schedule import Schedule
 
 TEMPLATE = "substep_chain.cu"
 MARKS = ("NV", "NM", "NPARTS", "SLOTS", "REGS", "BLOCKS", "PARTS")
-# warps a block (parts of the schedule), each with 32 envs, one a lane,
-# and the least weight a part may take in a stage (ops/substep_schedule.py)
+# the most warps a block (parts of the schedule), each with 32 envs, one a
+# lane, and the least weight a part may take in a stage
+# (ops/substep_schedule.py)
 PARTS, MIN_CAP = 8, 16
+# the dynamic shared memory a block may opt in to on an H100 (227 KB)
+MAX_BLOCK_BYTES = 232_448
 # -fmad=false: no multiply-add contraction, so K2 and K3 round op for op
 # like their plain version (csrc/substep_chain.cu); -Xptxas -v reports
 # registers, spills and shared memory in the build log
@@ -92,10 +95,19 @@ def pack_mods(model, mod_keys, mods, batch_shape):
     return torch.cat(cols, dim=1)
 
 
+def block_bytes(nv, nm, n_slots):
+    """The dynamic shared memory of a block, in bytes: 32 lanes of the two
+    state buffers (q, qd), tau, the mods row and the value slots
+    (csrc/substep_chain.cu, ``kSharedBytes``)."""
+    return (5 * nv + nm + n_slots) * 32 * 4
+
+
 class SubstepSource:
     """K2's CUDA source for one engine, or K3's with ``mod_keys``, split
-    over PARTS warps: ``text``, the emitted body's ``n_ops`` float
-    operations a substep, the (constant, literal) pairs it wrote, ``nm``,
+    over as many warps as fit: the most of PARTS, PARTS / 2, ..., 1 whose
+    block's shared memory (``block_bytes``) is at most MAX_BLOCK_BYTES.
+    ``text``, the emitted body's ``n_ops`` float operations a substep, the
+    (constant, literal) pairs it wrote, ``nm``, ``parts``, ``block_bytes``
     and ``schedule`` (ops/substep_schedule.py) with its figures,
     ``stats``."""
 
@@ -111,17 +123,28 @@ class SubstepSource:
                 if mod_keys else None)
         q2, qd2 = make_spatial_substep(engine)(em, q, qd, tau, mods=mods)
         outputs = [int(x.name[1:]) for x in q2 + qd2]
-        sched = Schedule(em.lines, outputs, PARTS, MIN_CAP)
-        self.schedule, self.n_ops = sched, sched.n_ops
+        parts = PARTS
+        while True:
+            sched = Schedule(em.lines, outputs, parts, MIN_CAP)
+            self.block_bytes = block_bytes(m.nv, self.nm, sched.n_slots)
+            if self.block_bytes <= MAX_BLOCK_BYTES:
+                break
+            if parts == 1:
+                raise ValueError(
+                    f"substep_chain: '{m.name}' needs {self.block_bytes} B "
+                    f"of shared memory a block at one warp, more than "
+                    f"{MAX_BLOCK_BYTES}")
+            parts //= 2
+        self.parts, self.schedule, self.n_ops = parts, sched, sched.n_ops
         self.stats = sched.stats()
         self.literals = list(em.literals)
         blocks = [_block_source(k, p, block, sched, em.lines, m.nv)
                   for k, stage in enumerate(sched.blocks)
                   for p, block in enumerate(stage) if block]
-        marks = dict(NV=m.nv, NM=self.nm, NPARTS=PARTS, SLOTS=sched.n_slots,
+        marks = dict(NV=m.nv, NM=self.nm, NPARTS=parts, SLOTS=sched.n_slots,
                      REGS=sched.n_regs, BLOCKS="\n\n".join(blocks),
                      PARTS="\n".join(_part_source(p, sched.blocks)
-                                     for p in range(PARTS)))
+                                     for p in range(parts)))
         text = nvcc_build.read_source(TEMPLATE)
         for mark in MARKS:
             tag = f"/*@{mark}@*/"
@@ -250,7 +273,7 @@ def substep_chain(engine, n_steps, mod_keys=()):
         if q.device.type != "cuda":
             raise ValueError(f"substep_chain: unsupported device {q.device}")
         if not kernel:
-            kernel.append(load_launch(engine, mod_keys))
+            kernel.append(load_launch(engine, mod_keys, q.device))
         q_out, qd_out = torch.empty_like(q), torch.empty_like(q)
         mods = ins[3].data_ptr() if mod_keys else None
         with torch.cuda.device(q.device):
@@ -289,12 +312,23 @@ def build_job(source):
     return (name, source.text, NVCC_FLAGS)
 
 
-def load_launch(engine, mod_keys=()):
+def load_launch(engine, mod_keys=(), device=None):
     """The library's C entry point ``substep_chain_launch(q, qd, tau, mods,
     q_out, qd_out, batch, n_steps, stream)`` through ctypes, built first if
-    needed; ``mods`` is None for K2. Returns a cudaError_t."""
-    lib = nvcc_build.load(nvcc_build.build(*build_job(
-        SubstepSource(engine, mod_keys))))
+    needed; ``mods`` is None for K2. Returns a cudaError_t. Raises before
+    the build if a block's shared memory exceeds what ``device`` (the
+    current CUDA device by default) lets a block opt in to."""
+    source = SubstepSource(engine, mod_keys)
+    props = torch.cuda.get_device_properties(
+        torch.cuda.current_device() if device is None else device)
+    limit = getattr(props, "shared_memory_per_block_optin", MAX_BLOCK_BYTES)
+    if source.block_bytes > limit:
+        raise RuntimeError(
+            f"substep_chain: '{engine.model.name}' takes "
+            f"{source.block_bytes} B of shared memory a block at "
+            f"{source.parts} warps, more than the {limit} B a block may "
+            f"take on {props.name}")
+    lib = nvcc_build.load(nvcc_build.build(*build_job(source)))
     fn = lib.substep_chain_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]

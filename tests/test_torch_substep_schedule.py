@@ -8,7 +8,17 @@ reads lies in a shared slot and one only its own part reads later in a
 shared slot or a register slot; no slot is written while a reader of its
 previous value is pending; the figures add up. (The numerics of the
 scheduled source are held in tests/test_torch_spatial.py and
-test_torch_substep_mods.py.)"""
+test_torch_substep_mods.py.)
+
+The warps a body's source takes: the most of 8, 4, 2 and 1 whose block
+fits the H100's 227 KB of shared memory (ant 8, humanoid 1, the other
+bodies 8); and the K2 and K3 sources of half_cheetah, walker2d and hopper
+pinned by their sha256, as they were before the warp count was derived.
+The ant's and the humanoid's sources (1.3 and 1.5 MB) are not built for
+the host here: chip_smoke.py holds their kernels bitwise against the
+plain version on the card."""
+import hashlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -52,7 +62,7 @@ def _check_slots(values, sched, table, strict):
     ("walker2d", KEYS, sk.PARTS), ("walker2d", (), sk.PARTS),
     ("hopper", KEYS, sk.PARTS), ("hopper", (), sk.PARTS),
     ("half_cheetah", KEYS, sk.PARTS), ("half_cheetah", (), sk.PARTS),
-    ("walker2d", KEYS, 16), ("walker2d", KEYS, 32)])
+    ("ant", (), sk.PARTS), ("walker2d", KEYS, 16), ("walker2d", KEYS, 32)])
 def test_schedule_is_valid(name, keys, parts):
     src = sk.SubstepSource(Engine(get_model(name)), keys)
     sched = src.schedule
@@ -114,3 +124,67 @@ def test_schedule_is_valid(name, keys, parts):
     assert src.stats == stats
     assert f"constexpr int kSlots = {sched.n_slots};" in src.text
     assert f"constexpr int kRegs = {sched.n_regs};" in src.text
+
+
+# sha256 of the generated sources of the bodies that keep 8 warps
+# (Engine(get_model(name)), chip_smoke.py's engines), as they were emitted
+# before the warp count was derived from the block's shared memory
+SOURCE_SHA256 = {
+    ("half_cheetah", ()):
+        "305636180b0d1ae9d4135d29500f6ed6d155d2d8258ea3c411f39345291246e0",
+    ("half_cheetah", KEYS):
+        "91459d958a32c4440b5040be74027fe9c8fb248004b42f7493b0fd5161bd3ba9",
+    ("walker2d", ()):
+        "b5384e3f0a73e7577731638ac48140116f5b0ffd1f2d238426ec5056ecd8c667",
+    ("walker2d", KEYS):
+        "6fe5845d4ad5ea1fa1bb62562ccbaaa0b518f34b45fba554f9fa5794bb7ca0bb",
+    ("hopper", ()):
+        "d352fd96415866aab6b48025ca13d3355f522087890fb48a5378282d7faf7b90",
+    ("hopper", KEYS):
+        "5b32028b259cb06561a4a6d6e21665656f5d75d3d9e572689170b2d7a98418a5",
+}
+
+
+@pytest.mark.parametrize("name,keys", sorted(SOURCE_SHA256))
+def test_planar_sources_unchanged(name, keys):
+    src = sk.SubstepSource(Engine(get_model(name)), keys)
+    assert src.parts == sk.PARTS
+    assert hashlib.sha256(src.text.encode()).hexdigest() == SOURCE_SHA256[
+        (name, keys)]
+
+
+@pytest.mark.parametrize("env_name,parts", [("AntRandGoalEnv", 8),
+                                            ("HumanoidRandDirecEnv", 1)])
+def test_parts_derived_from_the_block(env_name, parts):
+    from promp_tpu_torch.envs import make_env
+
+    engine = make_env(env_name).engine
+    src = sk.SubstepSource(engine)
+    assert src.parts == parts
+    assert f"constexpr int kParts = {parts};" in src.text
+    assert src.block_bytes == sk.block_bytes(engine.model.nv, 0,
+                                             src.schedule.n_slots)
+    assert src.block_bytes <= sk.MAX_BLOCK_BYTES
+    if parts < sk.PARTS:
+        # twice the warps would not fit
+        wider = Schedule(src.schedule.lines, src.schedule.outputs, 2 * parts,
+                         sk.MIN_CAP)
+        assert sk.block_bytes(engine.model.nv, 0,
+                              wider.n_slots) > sk.MAX_BLOCK_BYTES
+
+
+def test_load_launch_refuses_a_block_the_card_cannot_hold(monkeypatch):
+    """The wrapper raises, before any build, where a block takes more
+    shared memory than the card lets it opt in to: nothing runs the plain
+    version on the card instead."""
+    class Props:
+        name = "a card with 48 KB a block"
+        shared_memory_per_block_optin = 48 * 1024
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    monkeypatch.setattr(sk.nvcc_build, "build",
+                        lambda *args: pytest.fail("built"))
+    engine = Engine(get_model("half_cheetah"))     # 69,760 B a block
+    with pytest.raises(RuntimeError, match="more than the 49152 B"):
+        sk.load_launch(engine, device=0)
