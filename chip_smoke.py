@@ -71,8 +71,26 @@ Phases, each printing one JSON line:
  12. step_ops: the aten operations one env step of the scan engine
      dispatches on the cheetah, the ant, the humanoid and the walker (with
      and without the walker's auto-reset branch), and one pack of the
-     walker's multipliers.
-Then the {"kernels": [...]} line, the card's name and power limit as
+     walker's multipliers;
+ 13. the other algorithms, 3 meta-iterations each at the same shape:
+     trainer_vpg_pointmass (VPG-MAML) and trainer_dice_pointmass
+     (DICE-MAML with the DICE processor) on the point mass with K1 (6
+     launches each; the DICE mask all ones, since K1 never ends an
+     episode); trainer_trpo_cheetah and trainer_emaml_cheetah (TRPO-MAML
+     at run_scripts/maml_run_mujoco.py's and e-maml_run_mujoco.py's
+     settings) on normalize(HalfCheetahRandDirecEnv()) with K2 (600 each;
+     every step taken inside the trust region and better, BacktrackIters
+     in [0, 14]); trainer_vpg_dice_walker (VPG-DICE-MAML, the return
+     baseline, inner_lr 1e-3) on the walker with K3 (600; the DICE mask's
+     mean below 1); finite losses, KLs, returns and parameters, no
+     skipped Adam update;
+ 14. trainer_modes: ProMP on the main path's cheetah, a phase-split and a
+     fused Trainer from one seed (2 iterations each, parameters within
+     1e-6), timing_every=2 over 3 iterations (iteration 1 logs iteration
+     0's Time-* values), and a torch.profiler trace of one iteration (its
+     10 device kernels with the most time and its kernel launches).
+Then the {"kernels": [...]} line (each kernel's launches on the slice's
+main path, and by path in ``launches_by_path``), the card's name and power limit as
 nvidia-smi prints them, and the final {"ok": true, ...} line. Any failure
 raises, and the script exits non-zero without the final line. It needs a
 CUDA device and imports neither JAX nor the JAX package.
@@ -378,48 +396,77 @@ def phase_k1(device):
     return result
 
 
-def _promp_trainer(env, device, backend, log_dir):
-    """The main path's Trainer (bench.py::build_trainer's settings)."""
+def _promp(policy):
+    """The main path's ProMP (bench.py::build_trainer's settings)."""
     from promp_tpu_torch.algos.promp import ProMP
-    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
+    return ProMP(policy=policy, inner_lr=0.1, num_inner_grad_steps=1,
+                 learning_rate=1e-3, num_ppo_steps=5, clip_eps=0.3,
+                 init_inner_kl_penalty=5e-4, adaptive_inner_kl_penalty=False)
+
+
+def _processor():
     from promp_tpu_torch.sampling.processor import SampleProcessor
+    return SampleProcessor(discount=0.99, gae_lambda=1.0, normalize_adv=True)
+
+
+def _trainer(env, device, backend, make_algo=_promp, processor=None, **kw):
+    """A Trainer at the main path's shape, seed 1, a (64, 64) policy;
+    ``make_algo(policy)`` gives the algorithm (the main path's ProMP),
+    ``processor`` the sample processor (the main path's), ``kw`` more of
+    the Trainer's arguments."""
+    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
     from promp_tpu_torch.trainer import Trainer
-    from promp_tpu_torch.utils import logger
 
     policy = GaussianMLPPolicy(obs_dim=env.obs_dim, action_dim=env.action_dim,
                                hidden_sizes=HIDDEN)
-    algo = ProMP(policy=policy, inner_lr=0.1, num_inner_grad_steps=1,
-                 learning_rate=1e-3, num_ppo_steps=5, clip_eps=0.3,
-                 init_inner_kl_penalty=5e-4, adaptive_inner_kl_penalty=False)
-    logger.configure(dir=log_dir, format_strs=["csv"])
     return Trainer(
-        algo=algo, env=env, policy=policy,
-        sample_processor=SampleProcessor(discount=0.99, gae_lambda=1.0,
-                                         normalize_adv=True),
-        meta_batch_size=N_TASKS, rollouts_per_meta_task=N_ENVS,
-        max_path_length=HORIZON, n_itr=N_ITR, seed=1,
-        rollout_backend=backend, device=device)
+        algo=make_algo(policy), env=env, policy=policy,
+        sample_processor=processor or _processor(),
+        **dict(dict(meta_batch_size=N_TASKS, rollouts_per_meta_task=N_ENVS,
+                    max_path_length=HORIZON, n_itr=N_ITR, seed=1,
+                    rollout_backend=backend, device=device), **kw))
 
 
-def _train(env, device, backend, counters, extra_keys=()):
-    """Runs N_ITR meta-iterations with every launch count in ``counters``
-    ({name: (kernel wrapper, attribute)}) set to 0 just before; returns
-    (per-iteration logged values, seconds, {name: launches}, the number of
-    episodes that ended inside a round). Raises unless every iteration is
-    finite and skips no Adam update."""
+PROMP_KEYS = ("LossBefore", "LossAfter", "KLInner", "KLOuter",
+              "SkippedUpdates")
+TRPO_KEYS = ("LossBefore", "LossAfter", "MeanKLBefore", "MeanKL", "dLoss",
+             "KLInner", "BacktrackIters", "StepRejected")
+TIME_KEYS = ("ItrTime", "Time-Sampling", "Time-SampleProc", "Time-InnerStep",
+             "Time-OuterStep", "PolicyExecTime", "EnvExecTime")
+RETURN_KEYS = ("Step_0-AverageReturn", "Step_1-AverageReturn")
+
+
+def _train(env, device, backend, counters, extra_keys=(), loss_keys=PROMP_KEYS,
+           time_keys=TIME_KEYS, n_itr=N_ITR, **trainer_kw):
+    """Runs ``n_itr`` meta-iterations of ``_trainer(env, device, backend,
+    **trainer_kw)`` with every launch count in ``counters`` ({name: (kernel
+    wrapper, attribute)}) set to 0 just before. Returns a dict: the
+    per-iteration logged values (``time_keys``, ``loss_keys``, the returns
+    and ``extra_keys``), seconds, {name: launches}, the number of episodes
+    that ended inside a round, the DICE mask's mean of each round where the
+    samples carry one, the trainer and its final train_state. Raises unless
+    every loss, KL, return and parameter is finite and no Adam update was
+    skipped."""
     from promp_tpu_torch.utils import logger
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as log_dir:
-        trainer = _promp_trainer(env, device, backend, log_dir)
-        dones = []
-        sample = trainer._rollout
+        logger.configure(dir=log_dir, format_strs=["csv"])
+        trainer = _trainer(env, device, backend, n_itr=n_itr, **trainer_kw)
+        dones, masks = [], []
+        sample, process = trainer._rollout, trainer._process
 
         def counted(*args):
             out = sample(*args)
             dones.append(out["dones"].sum())   # read after the run
             return out
 
-        trainer._rollout = counted
+        def processed(traj):
+            out = process(traj)
+            if "mask" in out:
+                masks.append(out["mask"].mean())
+            return out
+
+        trainer._rollout, trainer._process = counted, processed
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         t0 = time.time()
@@ -432,36 +479,33 @@ def _train(env, device, backend, counters, extra_keys=()):
         logger.Logger.CURRENT.close()
         with open(os.path.join(log_dir, "progress.csv")) as f:
             rows = list(csv.DictReader(f))
-    keys = ("ItrTime", "Time-Sampling", "Time-SampleProc", "Time-InnerStep",
-            "Time-OuterStep", "PolicyExecTime", "EnvExecTime", "LossBefore",
-            "LossAfter", "KLInner", "KLOuter", "SkippedUpdates",
-            "Step_0-AverageReturn", "Step_1-AverageReturn") + extra_keys
+    keys = time_keys + loss_keys + RETURN_KEYS + extra_keys
     iterations = [{k: float(r[k]) for k in keys} for r in rows]
-    if len(iterations) != N_ITR:
+    if len(iterations) != n_itr:
         raise RuntimeError(f"{len(iterations)} iterations logged")
     for it in iterations:
-        for k in ("LossBefore", "LossAfter", "KLInner", "KLOuter",
-                  "Step_0-AverageReturn", "Step_1-AverageReturn"):
+        for k in loss_keys + RETURN_KEYS:
             if not torch.isfinite(torch.tensor(it[k])):
                 raise RuntimeError(f"{k} is not finite: {iterations}")
-        if it["SkippedUpdates"] != 0:
+        if it.get("SkippedUpdates", 0) != 0:
             raise RuntimeError(f"Adam skipped updates: {iterations}")
     for k, v in state["params"].items():
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"parameter {k} is not finite")
-    return iterations, seconds, launches, n_dones
+    return dict(iterations=iterations, seconds=seconds, launches=launches,
+                dones=n_dones, mask_means=[float(m) for m in masks],
+                trainer=trainer, state=state)
 
 
 def phase_trainer(device):
     from promp_tpu_torch.envs import MetaPointEnvCorner, normalize
     from promp_tpu_torch.ops.rollout_kernel import pointmass_rollout
 
-    iterations, seconds, launches, _ = _train(
-        normalize(MetaPointEnvCorner()), device, "kernel",
-        {"k1": (pointmass_rollout, "launches")})
-    launches = launches["k1"]
-    emit(dict(phase="trainer", iterations=iterations, seconds=seconds,
-              k1_launches=launches))
+    run = _train(normalize(MetaPointEnvCorner()), device, "kernel",
+                 {"k1": (pointmass_rollout, "launches")})
+    launches = run["launches"]["k1"]
+    emit(dict(phase="trainer", iterations=run["iterations"],
+              seconds=run["seconds"], k1_launches=launches))
     if launches != 2 * N_ITR:
         raise RuntimeError(f"K1 launched {launches} times in {N_ITR} "
                            f"iterations, expected {2 * N_ITR}")
@@ -808,12 +852,12 @@ def phase_trainer_3d(device, body):
     extra = ("Time-MAMLSteps",) + tuple(
         f"Step_{k}-Env-{key}" for k in (0, 1)
         for key in env.diagnostics_keys)
-    iterations, seconds, launches, dones = _train(
-        env, device, "scan", {"k2": (substep_chain, "launches"),
-                              "k3": (substep_chain, "mods_launches")},
-        extra_keys=extra)
+    run = _train(env, device, "scan",
+                 {"k2": (substep_chain, "launches"),
+                  "k3": (substep_chain, "mods_launches")}, extra_keys=extra)
+    launches, dones = run["launches"], run["dones"]
     emit(dict(phase=f"trainer_{body}", env=K2_ENVS_3D[body],
-              iterations=iterations, seconds=seconds,
+              iterations=run["iterations"], seconds=run["seconds"],
               k2_launches=launches["k2"], k3_launches=launches["k3"],
               dones=dones))
     if launches["k2"] != 2 * HORIZON * N_ITR or launches["k3"]:
@@ -903,12 +947,12 @@ def phase_trainer_walker(device):
     from promp_tpu_torch.envs import make_env, normalize
     from promp_tpu_torch.ops.substep_kernel import substep_chain
 
-    iterations, seconds, launches, dones = _train(
-        normalize(make_env("Walker2DRandParamsEnv")), device, "scan",
-        {"k2": (substep_chain, "launches"),
-         "k3": (substep_chain, "mods_launches")})
-    emit(dict(phase="trainer_walker_randparams", iterations=iterations,
-              seconds=seconds, k2_launches=launches["k2"],
+    run = _train(normalize(make_env("Walker2DRandParamsEnv")), device, "scan",
+                 {"k2": (substep_chain, "launches"),
+                  "k3": (substep_chain, "mods_launches")})
+    launches, dones = run["launches"], run["dones"]
+    emit(dict(phase="trainer_walker_randparams", iterations=run["iterations"],
+              seconds=run["seconds"], k2_launches=launches["k2"],
               k3_launches=launches["k3"], dones=dones))
     if launches["k3"] != 2 * HORIZON * N_ITR or launches["k2"]:
         raise RuntimeError(f"K3 launched {launches['k3']} and K2 "
@@ -925,14 +969,15 @@ def phase_trainer_cheetah(device):
     from promp_tpu_torch.envs import make_env, normalize
     from promp_tpu_torch.ops.substep_kernel import substep_chain
 
-    iterations, seconds, launches, _ = _train(
+    run = _train(
         normalize(make_env("HalfCheetahRandVelEnv")), device, "scan",
         {"k2": (substep_chain, "launches"),
          "k3": (substep_chain, "mods_launches")}, extra_keys=tuple(
             f"Step_{k}-{key}" for k in (0, 1) for key in
             ("AvgForwardVel", "AvgFinalForwardVel", "AvgCtrlCost")))
-    emit(dict(phase="trainer_cheetah", iterations=iterations,
-              seconds=seconds, k2_launches=launches["k2"],
+    launches = run["launches"]
+    emit(dict(phase="trainer_cheetah", iterations=run["iterations"],
+              seconds=run["seconds"], k2_launches=launches["k2"],
               k3_launches=launches["k3"]))
     if launches["k3"]:
         raise RuntimeError(f"K3 launched {launches['k3']} times on the "
@@ -942,6 +987,191 @@ def phase_trainer_cheetah(device):
         raise RuntimeError(f"K2 launched {launches} times in {N_ITR} "
                            f"iterations, expected {2 * HORIZON * N_ITR}")
     return launches
+
+
+def _k2_counters():
+    from promp_tpu_torch.ops.substep_kernel import substep_chain
+    return {"k2": (substep_chain, "launches"),
+            "k3": (substep_chain, "mods_launches")}
+
+
+def _expect_launches(phase, launches, want):
+    """Raises unless ``launches`` ({name: count}) is ``want``."""
+    if launches != want:
+        raise RuntimeError(f"{phase}: kernel launches {launches}, expected "
+                           f"{want}")
+
+
+def phase_trainer_trpo(device, exploration):
+    """3 TRPO-MAML (E-MAML with ``exploration``) meta-iterations at
+    run_scripts/maml_run_mujoco.py's (e-maml_run_mujoco.py's) settings on
+    normalize(HalfCheetahRandDirecEnv()): K2 600, K3 0; in every iteration
+    whose step was taken, MeanKL <= step_size and LossAfter < LossBefore;
+    BacktrackIters in [0, 14]."""
+    from promp_tpu_torch.algos.trpo_maml import TRPOMAML
+    from promp_tpu_torch.envs import make_env, normalize
+
+    step_size = 0.01
+    phase = "trainer_emaml_cheetah" if exploration else "trainer_trpo_cheetah"
+    run = _train(
+        normalize(make_env("HalfCheetahRandDirecEnv")), device, "scan",
+        _k2_counters(), loss_keys=TRPO_KEYS, extra_keys=("Time-MAMLSteps",),
+        make_algo=lambda policy: TRPOMAML(
+            policy=policy, inner_lr=0.1, num_inner_grad_steps=1,
+            inner_type="log_likelihood", step_size=step_size,
+            exploration=exploration))
+    its = run["iterations"]
+    emit(dict(phase=phase, iterations=its, seconds=run["seconds"],
+              k2_launches=run["launches"]["k2"],
+              k3_launches=run["launches"]["k3"],
+              steps=[{k: it[k] for k in ("Time-OuterStep", "BacktrackIters",
+                                         "MeanKL", "dLoss", "StepRejected")}
+                     for it in its]))
+    _expect_launches(phase, run["launches"],
+                     {"k2": 2 * HORIZON * N_ITR, "k3": 0})
+    for it in its:
+        if not 0 <= it["BacktrackIters"] <= 14:
+            raise RuntimeError(f"{phase}: BacktrackIters out of range: {its}")
+        if not it["StepRejected"] and not (
+                it["MeanKL"] <= step_size
+                and it["LossAfter"] < it["LossBefore"]):
+            raise RuntimeError(f"{phase}: a step outside the trust region "
+                               f"or not better was taken: {its}")
+    return run["launches"]["k2"]
+
+
+def phase_trainer_pointmass(device, dice):
+    """3 meta-iterations on normalize(MetaPointEnvCorner()) with K1:
+    VPG-MAML at run.py's defaults, or DICE-MAML with the DICE processor
+    (time baseline); K1 6, no skipped Adam update."""
+    from promp_tpu_torch.algos.dice_maml import DICEMAML
+    from promp_tpu_torch.algos.vpg_maml import VPGMAML
+    from promp_tpu_torch.envs import MetaPointEnvCorner, normalize
+    from promp_tpu_torch.ops.rollout_kernel import pointmass_rollout
+    from promp_tpu_torch.sampling.dice_processor import DiceSampleProcessor
+
+    algo = DICEMAML if dice else VPGMAML
+    phase = "trainer_dice_pointmass" if dice else "trainer_vpg_pointmass"
+    run = _train(
+        normalize(MetaPointEnvCorner()), device, "kernel",
+        {"k1": (pointmass_rollout, "launches")},
+        make_algo=lambda policy: algo(policy=policy, inner_lr=0.1,
+                                      num_inner_grad_steps=1,
+                                      learning_rate=1e-3),
+        processor=DiceSampleProcessor(max_path_length=HORIZON)
+        if dice else None)
+    emit(dict(phase=phase, iterations=run["iterations"],
+              seconds=run["seconds"], k1_launches=run["launches"]["k1"],
+              mask_means=run["mask_means"]))
+    _expect_launches(phase, run["launches"], {"k1": 2 * N_ITR})
+    if dice and run["mask_means"] != [1.0] * (2 * N_ITR):
+        raise RuntimeError(f"{phase}: K1 never ends an episode, so the "
+                           f"mask must be all ones: {run['mask_means']}")
+    return run["launches"]["k1"]
+
+
+def phase_trainer_vpg_dice_walker(device):
+    """3 VPG-DICE-MAML meta-iterations on normalize(Walker2DRandParamsEnv())
+    with the DICE processor's return baseline, inner_lr 1e-3: K3 600, K2 0;
+    walkers fall, so the DICE mask's mean is below 1."""
+    from promp_tpu_torch.algos.dice_maml import VPG_DICEMAML
+    from promp_tpu_torch.envs import make_env, normalize
+    from promp_tpu_torch.sampling.dice_processor import DiceSampleProcessor
+
+    phase = "trainer_vpg_dice_walker"
+    run = _train(
+        normalize(make_env("Walker2DRandParamsEnv")), device, "scan",
+        _k2_counters(),
+        make_algo=lambda policy: VPG_DICEMAML(
+            policy=policy, inner_lr=1e-3, num_inner_grad_steps=1,
+            learning_rate=1e-3),
+        processor=DiceSampleProcessor(
+            max_path_length=HORIZON,
+            return_baseline="LinearFeatureBaseline"))
+    mask_mean = sum(run["mask_means"]) / len(run["mask_means"])
+    emit(dict(phase=phase, iterations=run["iterations"],
+              seconds=run["seconds"], k2_launches=run["launches"]["k2"],
+              k3_launches=run["launches"]["k3"], dones=run["dones"],
+              mask_mean=mask_mean, mask_means=run["mask_means"]))
+    _expect_launches(phase, run["launches"],
+                     {"k2": 0, "k3": 2 * HORIZON * N_ITR})
+    if not mask_mean < 1.0:
+        raise RuntimeError(f"{phase}: the DICE mask is all ones, but "
+                           "walkers fall")
+    return run["launches"]["k3"]
+
+
+def trace_summary(path, top=10):
+    """From a Chrome trace of torch.profiler: the ``top`` device kernels by
+    summed time, the kernel launches, and their summed time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(kernel_launches=len(kernels),
+                kernel_ms=sum(e["dur"] for e in kernels) / 1e3,
+                top=[dict(name=name[:120], ms=ms, launches=n)
+                     for name, (ms, n) in ranked])
+
+
+def phase_trainer_modes(device):
+    """The Trainer's modes on the main path's cheetah (ProMP, bench.py's
+    settings, normalize(HalfCheetahRandVelEnv())): (a) a phase-split and a
+    fused Trainer from one seed, 2 iterations each, reach the same
+    parameters (max |diff| at most 1e-6); (b) timing_every=2 over 3
+    iterations logs iteration 0's Time-* values again in iteration 1; (c)
+    profile_dir traces iteration 1: the file exists, and its 10 device
+    kernels with the most time and its kernel launches are printed. K2
+    launches 200 an iteration in each."""
+    from promp_tpu_torch.envs import make_env, normalize
+
+    env = normalize(make_env("HalfCheetahRandVelEnv"))
+    phase = "trainer_modes"
+    launches = {}
+
+    def train(label, n_itr, **kw):
+        run = _train(env, device, "scan", _k2_counters(), n_itr=n_itr, **kw)
+        _expect_launches(f"{phase} {label}", run["launches"],
+                         {"k2": 2 * HORIZON * n_itr, "k3": 0})
+        launches[label] = run["launches"]["k2"]
+        return run
+
+    split = train("split", 2)
+    fused = train("fused", 2, fused=True, time_keys=("ItrTime",))
+    max_diff = max(float((fused["state"]["params"][k] - v).abs().max())
+                   for k, v in split["state"]["params"].items())
+    timed = train("timing_every", 3, timing_every=2)
+    its = timed["iterations"]
+    carried = all(its[1][k] == its[0][k] for k in TIME_KEYS[1:])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        traced = train("profile", 2, profile_dir=tdir, profile_itr=1)
+        path = traced["trainer"].profile_trace
+        if not path or not os.path.exists(path):
+            raise RuntimeError(f"{phase}: no profiler trace in {tdir}")
+        trace = trace_summary(path)
+        trace.update(file=os.path.basename(path),
+                     bytes=os.path.getsize(path),
+                     itr_ms=traced["iterations"][1]["ItrTime"] * 1e3)
+    emit(dict(phase=phase, fused_max_abs_diff=max_diff,
+              split_itr_s=[it["ItrTime"] for it in split["iterations"]],
+              fused_itr_s=[it["ItrTime"] for it in fused["iterations"]],
+              timing_every_measured_itr_s=[its[0]["ItrTime"],
+                                           its[2]["ItrTime"]],
+              timing_every_unmeasured_itr_s=[its[1]["ItrTime"]],
+              time_keys_carried=carried, trace=trace, k2_launches=launches))
+    if max_diff > 1e-6:
+        raise RuntimeError(f"{phase}: fused and phase-split parameters "
+                           f"differ by {max_diff}")
+    if not carried:
+        raise RuntimeError(f"{phase}: iteration 1 did not carry iteration "
+                           f"0's Time-* values: {its}")
+    if trace["kernel_launches"] == 0:
+        raise RuntimeError(f"{phase}: the trace holds no device kernel")
+    return sum(launches.values())
 
 
 def main():
@@ -1005,11 +1235,23 @@ def main():
 
     k1 = phase_k1(device)
     k1_launches = phase_trainer(device)
+    k1_paths = {"trainer": k1_launches,
+                "trainer_vpg_pointmass": phase_trainer_pointmass(device,
+                                                                 False),
+                "trainer_dice_pointmass": phase_trainer_pointmass(device,
+                                                                  True)}
     k2 = phase_k2(device)
     k2_launches = phase_trainer_cheetah(device)
+    k2_paths = {"trainer_cheetah": k2_launches,
+                "trainer_trpo_cheetah": phase_trainer_trpo(device, False),
+                "trainer_emaml_cheetah": phase_trainer_trpo(device, True),
+                "trainer_modes": phase_trainer_modes(device)}
     k3 = phase_k3(device)
     phase_k2_walker_hopper(device)
     k3_launches = phase_trainer_walker(device)
+    k3_paths = {"trainer_walker_randparams": k3_launches,
+                "trainer_vpg_dice_walker": phase_trainer_vpg_dice_walker(
+                    device)}
     k2_3d = phase_k2_ant_humanoid(device)
     k2_3d_launches = {body: phase_trainer_3d(device, body)
                       for body in K2_ENVS_3D}
@@ -1020,7 +1262,7 @@ def main():
         dict(name="K1_pointmass_rollout", route="cuda",
              source="promp_tpu_torch/csrc/rollout_kernel.cu",
              replaces="promp_tpu/ops/pallas_rollout.py:31",
-             launches=k1_launches,
+             launches=k1_launches, launches_by_path=k1_paths,
              max_abs_err=max(k1["max_abs_err"].values()),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], design_floor_ms=k1["design_floor_ms"],
@@ -1028,14 +1270,14 @@ def main():
         dict(name="K2_substep_chain", route="cuda",
              source="promp_tpu_torch/csrc/substep_chain.cu",
              replaces="promp_tpu/ops/pallas_substep.py:143",
-             launches=k2_launches,
+             launches=k2_launches, launches_by_path=k2_paths,
              max_abs_err=max(k2["max_abs_err"].values()),
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
         dict(name="K3_substep_chain_mods", route="cuda",
              source="promp_tpu_torch/csrc/substep_chain.cu",
              replaces="promp_tpu/ops/pallas_substep.py:252",
-             launches=k3_launches,
+             launches=k3_launches, launches_by_path=k3_paths,
              max_abs_err=max(max(r["max_abs_err"].values())
                              for r in k3.values()),
              ms=k3w["ms"], plain_ms=k3w["plain_ms"],
@@ -1045,6 +1287,7 @@ def main():
              source="promp_tpu_torch/csrc/substep_chain.cu",
              replaces="promp_tpu/ops/pallas_substep.py:143",
              launches=k2_3d_launches[body],
+             launches_by_path={f"trainer_{body}": k2_3d_launches[body]},
              max_abs_err=max(r["max_abs_err"].values()),
              ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], parts=r["parts"], library_ms=None)

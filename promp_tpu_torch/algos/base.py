@@ -29,6 +29,16 @@ class MAMLAlgo:
         return {k: torch.full_like(params[k], self.inner_lr)
                 for k in self.policy.trainable_keys(params)}
 
+    # the Trainer's interface; algorithms override what they use
+    def init_opt_state(self, train_state):
+        return ()
+
+    def init_hparams(self):
+        return {}
+
+    def update_hparams(self, hparams, metrics):
+        return hparams
+
     def mask_grads(self, grads):
         """Zero the gradients of non-trainable leaves (step sizes unless
         ``trainable_inner_step_size``; log_std unless ``learn_std``)."""
@@ -50,6 +60,13 @@ class MAMLAlgo:
                                  floor_std=floor_std)
         lr = dg.likelihood_ratio(data["actions"], data["agent_infos"], dist)
         return -torch.mean(lr * data["advantages"])
+
+    def log_likelihood_objective(self, params, data, floor_std):
+        """The -E[log pi * A] inner variant."""
+        dist = self.policy.apply(params, data["observations"],
+                                 floor_std=floor_std)
+        logli = dg.log_likelihood(data["actions"], dist)
+        return -torch.mean(logli * data["advantages"])
 
     # ------------------------------------------------------------ adaptation
     def adapt_step(self, params, step_sizes, data, floor_std=False):
@@ -100,3 +117,9 @@ class MAMLAlgo:
             advantages=samples_data["advantages"],
             agent_infos=samples_data["agent_infos"],
         )
+
+    # ---------------------------------------------------------- diagnostics
+    def post_update_dists(self, task_params, data, floor_std=False):
+        """The per-task policies' distributions on ``data``'s observations."""
+        return vmap(lambda p, d: self.policy.apply(
+            p, d["observations"], floor_std=floor_std))(task_params, data)

@@ -1,9 +1,24 @@
-"""Meta-training loop, phase-split (port of promp_tpu/trainer.py).
+"""Meta-training loop (port of promp_tpu/trainer.py).
 
 Per iteration: sample tasks; for each of the (num_inner_grad_steps + 1)
 rounds, sample rollouts, process them and (but after the last) adapt the
-per-task parameters; then the outer ProMP step. Each phase ends in a
-device barrier, so the Time-* keys are wall-clock times of that phase.
+per-task parameters; then the algorithm's outer step.
+
+Three modes, as in the JAX package:
+  * phase-split and measured (``timing_every=1``, the default): each phase
+    ends in a device barrier, so the Time-* keys are wall-clock times of
+    that phase, and the round's policy forwards are re-timed for the
+    PolicyExecTime / EnvExecTime split;
+  * phase-split, every ``timing_every``-th iteration measured: the others
+    run with no barrier and no re-timing, take one synchronisation at the
+    end (the metrics' copy to the host) and log the last measured Time-*
+    values again;
+  * ``fused``: every iteration runs like an unmeasured one and logs no
+    Time-* keys.
+All three draw from the Trainer's generator in the same order, so they
+reach the same ``train_state`` from one seed. ``profile_dir`` wraps
+iteration ``profile_itr`` in ``torch.profiler.profile`` (CPU activity,
+and CUDA activity on the card) and writes its Chrome trace there.
 
 ``rollout_backend`` chooses the sampler: ``"scan"`` is the general engine
 (sampling/rollout.py); ``"kernel"`` is K1 (ops/rollout_kernel.py), which
@@ -12,9 +27,11 @@ covers exactly sparse MetaPointEnvCorner under normalize(10) with a
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -54,6 +71,10 @@ class Trainer:
     start_itr: int = 0
     rollout_backend: str = "scan"   # "scan" | "kernel"
     device: Any = "cuda"
+    timing_every: int = 1
+    fused: bool = False
+    profile_dir: Optional[str] = None
+    profile_itr: int = 2
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -108,6 +129,8 @@ class Trainer:
         self.total_timesteps_sampled = 0
         self._policy_fwd = torch.func.vmap(self.policy.apply,
                                            in_dims=(0, 0, None))
+        self._phase_times = {}
+        self.profile_trace = None  # the path of the last trace written
 
     # -------------------------------------------------------------- sampling
     def _rollout(self, task_params, tasks, floor, reset_draw=None,
@@ -165,7 +188,17 @@ class Trainer:
         for itr in range(self.start_itr, self.n_itr):
             itr_start = time.time()
             logger.log(f"\n ---------------- Iteration {itr} ----------------")
-            metrics = self._run_phases()
+            profiler = self._profiler(itr)
+            with (profiler if profiler is not None
+                  else contextlib.nullcontext()):
+                if self.fused:
+                    metrics, _ = self._iteration()
+                else:
+                    metrics = self._run_phases(measure=(
+                        self.timing_every <= 1
+                        or itr % self.timing_every == 0))
+            if profiler is not None:
+                self._write_trace(profiler, itr)
             self.total_timesteps_sampled += steps_per_round * n_rounds
             self.hparams = self.algo.update_hparams(self.hparams, metrics)
             self._log_metrics(itr, metrics, itr_start)
@@ -175,15 +208,47 @@ class Trainer:
         logger.log("Training finished")
         return self.train_state
 
-    def _run_phases(self, tasks=None, draws=None):
-        """One phase-split iteration; returns host-side metrics.
+    def _profiler(self, itr):
+        """A ``torch.profiler.profile`` for iteration ``itr`` when it is the
+        one to trace, else None."""
+        if self.profile_dir is None or itr != self.profile_itr:
+            return None
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    def _write_trace(self, profiler, itr):
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_itr{itr}.json")
+        profiler.export_chrome_trace(path)
+        self.profile_trace = path
+        logger.log(f"profiler trace written to {path}")
+
+    def _run_phases(self, tasks=None, draws=None, measure=True):
+        """One phase-split iteration; returns host-side metrics with the
+        Time-* keys of this iteration when ``measure``, else those of the
+        last measured one (none before the first).
 
         ``tasks`` (a tensor or a dict of tensors) and ``draws`` (a list
         with one (reset draw, noise) pair or (reset draw, noise, auto-reset
         draws) triple per round, see ``_rollout``) may be given pre-drawn;
         otherwise they come from the trainer's generator.
         """
+        metrics, times = self._iteration(tasks, draws, measure)
+        if measure:
+            self._phase_times = times
+        metrics.update(self._phase_times)
+        return metrics
+
+    def _iteration(self, tasks=None, draws=None, measure=False):
+        """The rounds and the outer step; returns (host-side metrics, the
+        phase times). ``measure`` takes a device barrier after each phase
+        and re-times the policy's forwards; without it the phases run back
+        to back, the times are not meaningful, and the one synchronisation
+        is the metrics' copy to the host."""
         dev = self.device
+        barrier = (lambda: synchronize(dev)) if measure else (lambda: None)
         if tasks is None:
             tasks = self.env.sample_tasks(self._gen, self.meta_batch_size, dev)
         task_params = self.policy.replicate(self.train_state["params"],
@@ -194,35 +259,40 @@ class Trainer:
             floor = step == 0
             round_draws = tuple(draws[step]) if draws is not None else ()
             round_draws += (None,) * (3 - len(round_draws))
-            synchronize(dev)
+            barrier()
             ts = time.time()
             traj = self._rollout(task_params, tasks, floor, *round_draws)
-            synchronize(dev)
+            barrier()
             t_sampling += time.time() - ts
             tp = time.time()
             samples = self._process(traj)
-            synchronize(dev)
+            barrier()
             t_proc += time.time() - tp
-            # policy/env split of sampling: re-time the policy's forwards
-            # over the round's observations; the rest is env time
-            tpol = time.time()
-            self._policy_fwd(task_params, traj["observations"], floor)
-            synchronize(dev)
-            t_policy += time.time() - tpol
+            if measure:
+                # policy/env split of sampling: re-time the policy's
+                # forwards over the round's observations; the rest is env
+                # time
+                tpol = time.time()
+                self._policy_fwd(task_params, traj["observations"], floor)
+                barrier()
+                t_policy += time.time() - tpol
             round_stats.append(samples.pop("stats"))
             all_data.append(samples)
             if step < self.num_inner_grad_steps:
                 ta = time.time()
                 task_params = self.algo.adapt(
                     task_params, self.train_state["step_sizes"], samples)
-                synchronize(dev)
+                barrier()
                 t_inner += time.time() - ta
         to = time.time()
         self.train_state, self.opt_state, metrics = self.algo.optimize_policy(
             self.train_state, self.opt_state, all_data, self.hparams)
         metrics, round_stats = _to_host((metrics, tuple(round_stats)))
         t_outer = time.time() - to
-        metrics.update({
+        for step, stats in enumerate(round_stats):
+            for k, v in stats.items():
+                metrics[f"Step_{step}-{k}"] = v
+        return metrics, {
             "Time-Sampling": t_sampling,
             "Time-SampleProc": t_proc,
             "Time-InnerStep": t_inner,
@@ -230,11 +300,7 @@ class Trainer:
             "Time-MAMLSteps": t_inner + t_outer,
             "PolicyExecTime": min(t_policy, t_sampling),
             "EnvExecTime": max(t_sampling - t_policy, 0.0),
-        })
-        for step, stats in enumerate(round_stats):
-            for k, v in stats.items():
-                metrics[f"Step_{step}-{k}"] = v
-        return metrics
+        }
 
     def _log_metrics(self, itr, metrics, itr_start):
         logger.logkv("Itr", itr)

@@ -34,7 +34,9 @@ def test_sources_found():
                    "envs/mujoco/rand_params.py", "ops/substep_kernel.py",
                    "ops/substep_schedule.py", "ops/nvcc_build.py",
                    "envs/mujoco/rotations.py", "envs/mujoco/ant.py",
-                   "envs/mujoco/humanoid.py"):
+                   "envs/mujoco/humanoid.py", "optimizers/trpo.py",
+                   "algos/vpg_maml.py", "algos/trpo_maml.py",
+                   "algos/dice_maml.py", "sampling/dice_processor.py"):
         assert f"promp_tpu_torch/{module}" in SOURCES, module
 
 

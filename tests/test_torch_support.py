@@ -1,5 +1,8 @@
 """Shared helpers of the port's CPU tests (no tests of its own).
 
+``maml_samples``: two rounds of processed samples for an algorithm's
+objectives, from a seed (the MAML-family tests of the other algorithms).
+
 ``torch_single_thread``: one torch thread for the port's tests. Their
 tensors are tiny, so more threads only add overhead, and the suite runs
 several test processes on the host's cores at once.
@@ -254,3 +257,58 @@ def check_parity(result, max_flips):
                                    **PARAM_TOL)
     # the outer step moved the parameters
     assert max(np.abs(tparams[k] - init[k]).max() for k in init) > 1e-4
+
+
+def np_tree(tree):
+    """A nested dict of JAX or numpy arrays as numpy arrays."""
+    return {k: np_tree(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def jax_tree(tree):
+    return {k: jax_tree(v) if isinstance(v, dict) else jnp.asarray(v)
+            for k, v in tree.items()}
+
+
+def maml_samples(jalgo, params, seed, shape=(2, 2, 5), dice=False):
+    """(step sizes, two rounds of processed samples), numpy, for the JAX
+    algorithm ``jalgo`` at ``params``: random observations, the sampling
+    policies' actions and distributions (round 1's from ``jalgo.adapt`` on
+    round 0), random advantages and adj_avg_rewards; with ``dice`` also
+    random dones mid-path, their prefix mask, random adjusted rewards, and
+    every buffer multiplied by the mask as the DICE processor does.
+    ``shape`` is (tasks, paths, T)."""
+    jpol = jalgo.policy
+    n_t, n_p, horizon = shape
+    rng = np.random.default_rng(seed)
+    step_sizes = jalgo.init_step_sizes(params)
+    task_params = jpol.replicate(params, n_t)
+    rounds = []
+    for step in (0, 1):
+        obs = rng.normal(size=shape + (jpol.obs_dim,)).astype(np.float32)
+        dist = np_tree(jax.vmap(jpol.apply, in_axes=(0, 0, None))(
+            task_params, jnp.asarray(obs), step == 0))
+        noise = rng.normal(size=dist["mean"].shape).astype(np.float32)
+        data = dict(observations=obs,
+                    actions=dist["mean"] + noise * np.exp(dist["log_std"]),
+                    advantages=rng.normal(size=shape).astype(np.float32),
+                    adj_avg_rewards=rng.normal(size=shape).astype(
+                        np.float32),
+                    agent_infos=dist)
+        if dice:
+            dones = rng.random(shape) < 0.2
+            mask = (np.cumsum(dones, -1) - dones < 0.5).astype(np.float32)
+            data = dict(
+                observations=obs * mask[..., None],
+                actions=data["actions"] * mask[..., None],
+                advantages=data["advantages"] * mask,
+                adj_avg_rewards=data["adj_avg_rewards"],
+                agent_infos={k: v * mask[..., None] for k, v in dist.items()},
+                adjusted_rewards=rng.normal(size=shape).astype(
+                    np.float32) * mask,
+                mask=mask)
+        rounds.append(data)
+        if step == 0:
+            task_params = jalgo.adapt(task_params, step_sizes,
+                                      jax_tree(data))
+    return np_tree(step_sizes), rounds
