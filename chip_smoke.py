@@ -89,6 +89,32 @@ Phases, each printing one JSON line:
      1e-6), timing_every=2 over 3 iterations (iteration 1 logs iteration
      0's Time-* values), and a torch.profiler trace of one iteration (its
      10 device kernels with the most time and its kernel launches).
+ 15. run_scripts: the DEFAULT_CONFIGs of promp_tpu_torch/run_scripts/
+     pro-mp_run_mujoco.py, maml_run_mujoco.py and e-maml_run_mujoco.py
+     (loaded by path) through run.run_experiment at n_itr 2 with
+     snapshot_mode "all": params.json, a progress.csv of 2 rows with
+     finite losses, itr_0.pkl and itr_1.pkl, K2 200 an iteration and K3
+     0; then pro-mp_run_point_mass.py as a subprocess on the card from a
+     --config_file (n_itr 2): exit code 0 and the same files;
+ 16. config3: BASELINE.json config 3 with two inner steps, three sampling
+     rounds an iteration: ProMP at pro-mp_run_mujoco's config on
+     Walker2DRandParamsEnv for 2 iterations (K3 300 an iteration, K2 0)
+     and E-MAML at e-maml_run_mujoco's config on AntRandGoalEnv for 1
+     (K2 300); the Step_0..2 returns, KLs and TRPO's MeanKL, every TRPO
+     step taken inside the trust region or its rejection printed;
+ 17. resume: ProMP on HalfCheetahRandVelEnv, 3 iterations uninterrupted
+     against 2 through run_experiment, then a fresh build resumed by
+     checkpoints.resume_trainer and trained to 3: parameters, step sizes,
+     Adam state and the card's generator state equal to the bit (K2
+     1,200);
+ 18. point_variants: one ProMP iteration through run_experiment on each of
+     the five point variants at the point-mass script's width;
+ 19. sweep: run_sweep's serial mode over two seeds of the point mass
+     (n_itr 1, the two runs' parameters differ), and the docker and slurm
+     launch files, generated and not run;
+ 20. native: every snapshot of phases 15-19 went through the g++-built
+     AsyncCheckpointWriter with 0 errors; one AsyncFileSink round trip.
+Each phase from 15 on prints its wall time (``seconds``).
 Then the {"kernels": [...]} line (each kernel's launches on the slice's
 main path, and by path in ``launches_by_path``), the card's name and power limit as
 nvidia-smi prints them, and the final {"ok": true, ...} line. Any failure
@@ -100,6 +126,7 @@ import ctypes
 import hashlib
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -1174,6 +1201,344 @@ def phase_trainer_modes(device):
     return sum(launches.values())
 
 
+# ---------------------------------------------------------------- slice 8
+SCRIPTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "promp_tpu_torch", "run_scripts")
+MUJOCO_SCRIPTS = ("pro-mp_run_mujoco", "maml_run_mujoco",
+                  "e-maml_run_mujoco")
+POINT_VARIANTS = ("MetaPointEnv", "MetaPointEnvV2", "MetaPointEnvCornerGoals",
+                  "MetaPointEnvMomentum", "MetaPointEnvWalls")
+# each run_experiment's snapshot report: (phase, logger.snapshot_report)
+SNAPSHOT_REPORTS = []
+
+
+def default_config(script):
+    """A port run script's DEFAULT_CONFIG, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        script.replace("-", "_"), os.path.join(SCRIPTS_DIR, f"{script}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return dict(module.DEFAULT_CONFIG)
+
+
+def _read_progress(dump):
+    with open(os.path.join(dump, "progress.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def _check_run_dir(phase, dump, n_itr, snapshots, finite_keys):
+    """Raises unless ``dump`` holds params.json, a progress.csv of
+    ``n_itr`` rows whose ``finite_keys`` are finite, and exactly the
+    snapshot files ``snapshots``; returns the rows."""
+    if not os.path.exists(os.path.join(dump, "params.json")):
+        raise RuntimeError(f"{phase}: no params.json in {dump}")
+    rows = _read_progress(dump)
+    if len(rows) != n_itr:
+        raise RuntimeError(f"{phase}: {len(rows)} rows in progress.csv, "
+                           f"expected {n_itr}")
+    for row in rows:
+        for k in finite_keys:
+            if not torch.isfinite(torch.tensor(float(row[k]))):
+                raise RuntimeError(f"{phase}: {k} is not finite: {row[k]}")
+    got = sorted(f for f in os.listdir(dump) if f.endswith(".pkl"))
+    if got != sorted(snapshots):
+        raise RuntimeError(f"{phase}: snapshots {got}, expected "
+                           f"{sorted(snapshots)}")
+    return rows
+
+
+def _loss_keys(config):
+    keys = TRPO_KEYS if config.get("algo") == "TRPOMAML" else PROMP_KEYS
+    return keys + tuple(f"Step_{k}-AverageReturn" for k in
+                        range(config.get("num_inner_grad_steps", 1) + 1))
+
+
+def _run_experiment(phase, config, dump, counters):
+    """``run.run_experiment(config, dump)`` with every count in
+    ``counters`` set to 0 just before; checks the run directory (one
+    itr_<n>.pkl an iteration under snapshot_mode "all"); returns the
+    rows, seconds, launches and the logger's snapshot report."""
+    from promp_tpu_torch.run import run_experiment
+    from promp_tpu_torch.utils import logger
+
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    t0 = time.time()
+    run_experiment(config, dump_path=dump)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {name: getattr(obj, attr)
+                for name, (obj, attr) in counters.items()}
+    current = logger.Logger.CURRENT
+    current.close()
+    logger.Logger.CURRENT = None
+    report = dict(current.snapshot_report)
+    SNAPSHOT_REPORTS.append((phase, report))
+    n_itr = config["n_itr"]
+    snapshots = ([f"itr_{i}.pkl" for i in range(n_itr)]
+                 if config.get("snapshot_mode") == "all" else
+                 [] if config.get("snapshot_mode") == "none" else
+                 ["params.pkl"])
+    rows = _check_run_dir(phase, dump, n_itr, snapshots, _loss_keys(config))
+    return dict(rows=rows, seconds=seconds, launches=launches, report=report)
+
+
+def _pick(rows, keys):
+    return [{k: float(r[k]) for k in keys if k in r} for r in rows]
+
+
+def phase_run_scripts(device, work):
+    """The three mujoco scripts' DEFAULT_CONFIGs through run_experiment in
+    this process (n_itr 2, snapshot_mode "all"): K2 200 an iteration, K3
+    0; then pro-mp_run_point_mass.py as a subprocess on the card from a
+    --config_file (n_itr 2). Returns {path: K2 launches}."""
+    t_phase = time.time()
+    paths, runs = {}, {}
+    for script in MUJOCO_SCRIPTS:
+        config = dict(default_config(script), n_itr=2, snapshot_mode="all",
+                      log_formats=["log", "csv"])
+        run = _run_experiment(f"run_scripts {script}", config,
+                              os.path.join(work, script), _k2_counters())
+        _expect_launches(f"run_scripts {script}", run["launches"],
+                         {"k2": 2 * HORIZON * 2, "k3": 0})
+        paths[f"run_scripts_{script}"] = run["launches"]["k2"]
+        runs[script] = dict(
+            env=config["env"], seconds=run["seconds"],
+            launches=run["launches"], snapshots=run["report"],
+            iterations=_pick(run["rows"], ("ItrTime",) + _loss_keys(config)))
+    config = dict(default_config("pro-mp_run_point_mass"), n_itr=2,
+                  snapshot_mode="all")
+    cfg_path = os.path.join(work, "point_mass.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    dump = os.path.join(work, "pro-mp_run_point_mass")
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(SCRIPTS_DIR, "pro-mp_run_point_mass.py"),
+         "--config_file", cfg_path, "--dump_path", dump],
+        env=env, capture_output=True, text=True, timeout=300)
+    sub_seconds = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"pro-mp_run_point_mass.py exited "
+                           f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    rows = _check_run_dir("run_scripts pro-mp_run_point_mass", dump, 2,
+                          ["itr_0.pkl", "itr_1.pkl"], _loss_keys(config))
+    runs["pro-mp_run_point_mass (subprocess)"] = dict(
+        env=config["env"], rc=proc.returncode, seconds=sub_seconds,
+        iterations=_pick(rows, ("ItrTime",) + _loss_keys(config)))
+    emit(dict(phase="run_scripts", runs=runs,
+              seconds=time.time() - t_phase))
+    return paths
+
+
+def phase_config3(device, work):
+    """BASELINE.json config 3 with two inner steps: ProMP
+    (pro-mp_run_mujoco's config) on Walker2DRandParamsEnv for 2 iterations
+    (K3 300 an iteration, K2 0: three sampling rounds of 100 steps), and
+    E-MAML (e-maml_run_mujoco's config) on AntRandGoalEnv for 1 iteration
+    (K2 300); Step_0..2 returns finite, every TRPO step taken or its
+    rejection printed. Returns ({path: K3}, {path: K2 of the ant})."""
+    from promp_tpu_torch.ops.substep_kernel import substep_chain
+
+    t_phase = time.time()
+    step_keys = tuple(f"Step_{k}-AverageReturn" for k in range(3))
+    walker_cfg = dict(default_config("pro-mp_run_mujoco"),
+                      env="Walker2DRandParamsEnv", num_inner_grad_steps=2,
+                      n_itr=2, snapshot_mode="all",
+                      log_formats=["log", "csv"])
+    walker = _run_experiment("config3 walker", walker_cfg,
+                             os.path.join(work, "config3_walker"),
+                             _k2_counters())
+    _expect_launches("config3 walker", walker["launches"],
+                     {"k2": 0, "k3": 3 * HORIZON * 2})
+    ant_cfg = dict(default_config("e-maml_run_mujoco"), env="AntRandGoalEnv",
+                   num_inner_grad_steps=2, n_itr=1, snapshot_mode="all",
+                   log_formats=["log", "csv"])
+    ant = _run_experiment("config3 ant", ant_cfg,
+                          os.path.join(work, "config3_ant"),
+                          {"k2": (substep_chain, "launches"),
+                           "k3": (substep_chain, "mods_launches")})
+    _expect_launches("config3 ant", ant["launches"],
+                     {"k2": 3 * HORIZON, "k3": 0})
+    rejected = []
+    for it in _pick(ant["rows"], TRPO_KEYS):
+        if it["StepRejected"]:
+            rejected.append(it)
+        elif not (it["MeanKL"] <= ant_cfg["step_size"]
+                  and it["LossAfter"] < it["LossBefore"]):
+            raise RuntimeError(f"config3 ant: a step outside the trust "
+                               f"region or not better was taken: {it}")
+    emit(dict(
+        phase="config3", seconds=time.time() - t_phase,
+        walker=dict(env=walker_cfg["env"], algo="ProMP",
+                    num_inner_grad_steps=2, seconds=walker["seconds"],
+                    launches=walker["launches"],
+                    iterations=_pick(walker["rows"], (
+                        "ItrTime", "KLInner", "KLOuter") + step_keys)),
+        ant=dict(env=ant_cfg["env"], algo="E-MAML (TRPOMAML, exploration)",
+                 num_inner_grad_steps=2, seconds=ant["seconds"],
+                 launches=ant["launches"],
+                 iterations=_pick(ant["rows"], (
+                     "ItrTime", "MeanKL", "StepRejected", "BacktrackIters")
+                     + step_keys),
+                 rejected_steps=rejected)))
+    return ({"config3_walker": walker["launches"]["k3"]},
+            {"config3_ant": ant["launches"]["k2"]})
+
+
+def phase_resume(device, work):
+    """ProMP on HalfCheetahRandVelEnv at pro-mp_run_mujoco's config: 3
+    iterations uninterrupted, against 2 through run_experiment, then a
+    fresh build resumed by checkpoints.resume_trainer from the run's
+    params.pkl and trained to n_itr 3. The final parameters, step sizes,
+    Adam state and generator state must be equal to the bit. K2 200 an
+    iteration (1,200 in all)."""
+    from promp_tpu_torch.optimizers.adam import tree_leaves
+    from promp_tpu_torch.run import build
+    from promp_tpu_torch.utils import checkpoints, logger
+
+    t_phase = time.time()
+    counters = _k2_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    config = dict(default_config("pro-mp_run_mujoco"), n_itr=3,
+                  snapshot_mode="last", log_formats=["csv"])
+
+    def fresh(tag):
+        logger.configure(dir=os.path.join(work, tag), format_strs=["csv"],
+                         snapshot_mode="none")
+        return build(config)
+
+    whole = fresh("resume_whole")
+    whole.train()
+    run_dir = os.path.join(work, "resume_run")
+    _run_experiment("resume first 2", dict(config, n_itr=2), run_dir, {})
+    resumed = fresh("resume_resumed")
+    start = checkpoints.resume_trainer(resumed, run_dir)
+    if start != 2:
+        raise RuntimeError(f"resume: resume_trainer started at {start}")
+    resumed.train()
+    torch.cuda.synchronize()
+    logger.Logger.CURRENT.close()
+    logger.Logger.CURRENT = None
+    launches = {name: getattr(obj, attr)
+                for name, (obj, attr) in counters.items()}
+    a = tree_leaves((whole.train_state, whole.opt_state))
+    b = tree_leaves((resumed.train_state, resumed.opt_state))
+    equal = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    max_diff = max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b))
+    rng_equal = torch.equal(whole._gen.get_state(), resumed._gen.get_state())
+    emit(dict(phase="resume", env=config["env"], leaves=len(a),
+              bit_equal=equal, max_abs_diff=max_diff, rng_equal=rng_equal,
+              adam_count=int(resumed.opt_state.count),
+              generator_device=resumed._gen.device.type, launches=launches,
+              seconds=time.time() - t_phase))
+    _expect_launches("resume", launches, {"k2": 2 * HORIZON * 6, "k3": 0})
+    if not (equal and rng_equal):
+        raise RuntimeError(f"resume: the resumed run differs from the "
+                           f"uninterrupted one (max |diff| {max_diff}, "
+                           f"generator equal {rng_equal})")
+    return launches["k2"]
+
+
+def phase_native(work):
+    """The logger's snapshots in the phases above went through the
+    g++-built AsyncCheckpointWriter with no error; one AsyncFileSink round
+    trip."""
+    from promp_tpu_torch.ops import nvcc_build
+    from promp_tpu_torch.utils.native import AsyncFileSink
+
+    t_phase = time.time()
+    path = os.path.join(work, "sink.txt")
+    sink = AsyncFileSink(path)
+    for i in range(500):
+        sink.write(f"line{i}\n")
+    sink.flush()
+    dropped = sink.dropped_rows()
+    sink.close()
+    with open(path) as f:
+        lines = f.read().splitlines()
+    libraries = [os.path.basename(nvcc_build.build_host(n, f"{n}.cpp"))
+                 for n in ("ckptwriter", "logsink")]
+    submitted = sum(r["submitted"] for _, r in SNAPSHOT_REPORTS)
+    errors = sum(r["errors"] for _, r in SNAPSHOT_REPORTS)
+    native = all(r["native"] for _, r in SNAPSHOT_REPORTS if r["submitted"])
+    emit(dict(phase="native", libraries=libraries, native=native,
+              snapshots_written=submitted, errors=errors,
+              runs=len(SNAPSHOT_REPORTS), sink_lines=len(lines),
+              sink_dropped=dropped, seconds=time.time() - t_phase))
+    if not native or errors or not submitted:
+        raise RuntimeError(f"native: snapshot reports {SNAPSHOT_REPORTS}")
+    if lines != [f"line{i}" for i in range(500)] or dropped:
+        raise RuntimeError(f"native: the sink wrote {len(lines)} lines, "
+                           f"dropped {dropped}")
+
+
+def phase_point_variants(device, work):
+    """One ProMP iteration through run.run_experiment (run.build) on each
+    point variant at the point-mass script's full width (the scan
+    engine); finite losses."""
+    t_phase = time.time()
+    base = dict(default_config("pro-mp_run_point_mass"), n_itr=1,
+                snapshot_mode="none", log_formats=["csv"])
+    results = {}
+    for name in POINT_VARIANTS:
+        run = _run_experiment(f"point_variants {name}", dict(base, env=name),
+                              os.path.join(work, f"variant_{name}"), {})
+        results[name] = dict(seconds=run["seconds"], **_pick(
+            run["rows"], ("ItrTime",) + _loss_keys(base))[0])
+    emit(dict(phase="point_variants", variants=results,
+              seconds=time.time() - t_phase))
+
+
+def phase_sweep(device, work):
+    """run_sweep in serial mode over two seeds of the point mass (n_itr 1),
+    then the docker and slurm launch files (generated, not run)."""
+    from promp_tpu_torch.experiment_utils.run_sweep import _slug, run_sweep
+    from promp_tpu_torch.run import run_experiment
+    from promp_tpu_torch.utils import logger
+
+    t_phase = time.time()
+    data = os.path.join(work, "sweep")
+    base = dict(default_config("pro-mp_run_point_mass"), n_itr=1,
+                log_formats=["csv"])
+    run_sweep(run_experiment, {"seed": [1, 2]}, "smoke", base_config=base,
+              data_dir=data)
+    logger.Logger.CURRENT.close()
+    logger.Logger.CURRENT = None
+    seeds, params = {}, {}
+    for seed in (1, 2):
+        dump = os.path.join(data, "smoke", _slug({"seed": seed}))
+        rows = _check_run_dir(f"sweep seed {seed}", dump, 1, ["params.pkl"],
+                              _loss_keys(base))
+        seeds[seed] = _pick(rows, ("ItrTime", "Step_1-AverageReturn"))[0]
+        with open(os.path.join(dump, "params.pkl"), "rb") as f:
+            params[seed] = pickle.load(f)["train_state"]["params"]
+    entry = os.path.relpath(os.path.join(SCRIPTS_DIR,
+                                         "pro-mp_run_point_mass.py"))
+    artifacts = {}
+    for mode in ("docker", "slurm"):
+        script = run_sweep(None, {"seed": [1, 2]}, f"smoke_{mode}",
+                           base_config=base, mode=mode, data_dir=data,
+                           python_entry=entry)
+        artifacts[mode] = sorted(os.listdir(os.path.dirname(script)))
+    if "Dockerfile" not in artifacts["docker"] or \
+            "submit_all.sh" not in artifacts["slurm"]:
+        raise RuntimeError(f"sweep: launch files missing: {artifacts}")
+    if all((params[1][k] == params[2][k]).all() for k in params[1]):
+        raise RuntimeError("sweep: the two seeds' runs have equal "
+                           "parameters")
+    emit(dict(phase="sweep", seeds=seeds, artifacts=artifacts,
+              seconds=time.time() - t_phase))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1256,6 +1621,14 @@ def main():
     k2_3d_launches = {body: phase_trainer_3d(device, body)
                       for body in K2_ENVS_3D}
     phase_step_ops(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as work:
+        k2_paths.update(phase_run_scripts(device, work))
+        k3_config3, k2_config3_ant = phase_config3(device, work)
+        k3_paths.update(k3_config3)
+        k2_paths["resume"] = phase_resume(device, work)
+        phase_point_variants(device, work)
+        phase_sweep(device, work)
+        phase_native(work)
 
     k3w = k3["walker2d"]
     emit({"kernels": [
@@ -1287,7 +1660,9 @@ def main():
              source="promp_tpu_torch/csrc/substep_chain.cu",
              replaces="promp_tpu/ops/pallas_substep.py:143",
              launches=k2_3d_launches[body],
-             launches_by_path={f"trainer_{body}": k2_3d_launches[body]},
+             launches_by_path=dict({f"trainer_{body}": k2_3d_launches[body]},
+                                   **(k2_config3_ant if body == "ant"
+                                      else {})),
              max_abs_err=max(r["max_abs_err"].values()),
              ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], parts=r["parts"], library_ms=None)

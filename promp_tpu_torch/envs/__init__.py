@@ -2,6 +2,9 @@
 from promp_tpu_torch.envs.base import ENV_REGISTRY, Box, TaskEnv, make_env, register_env  # noqa: F401
 from promp_tpu_torch.envs.normalized import NormalizedEnv, normalize  # noqa: F401
 from promp_tpu_torch.envs.point.corner import MetaPointEnvCorner  # noqa: F401
+from promp_tpu_torch.envs.point.basic import (  # noqa: F401
+    MetaPointEnv, MetaPointEnvCornerGoals, MetaPointEnvMomentum, MetaPointEnvV2)
+from promp_tpu_torch.envs.point.walls import MetaPointEnvWalls  # noqa: F401
 from promp_tpu_torch.envs.mujoco.locomotion import (  # noqa: F401
     HalfCheetahRandDirecEnv, HalfCheetahRandVelEnv, HopperEnv,
     Walker2DRandDirecEnv, Walker2DRandVelEnv)

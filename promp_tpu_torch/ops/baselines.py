@@ -51,9 +51,7 @@ def fit_linear_baseline(feats, targets, mask=None, reg_coeff=1e-5,
         n_retries, dtype=gram.dtype, device=gram.device))
     systems = gram[..., None, :, :] + regs[:, None, None] * eye
     rhs = rhs[..., None, :].expand(systems.shape[:-1])
-    # solve_ex: a singular system reports through ``info`` (and inf/NaN in
-    # its result) instead of raising, like an LU solve in XLA
-    candidates, info = torch.linalg.solve_ex(systems, rhs)
+    candidates, info = _solve(systems, rhs)
     ok = torch.isfinite(candidates).all(dim=-1) & (info == 0)
     first_ok = torch.argmax(ok.to(torch.int32), dim=-1)
     idx = torch.where(ok.any(dim=-1), first_ok,
@@ -61,6 +59,25 @@ def fit_linear_baseline(feats, targets, mask=None, reg_coeff=1e-5,
     return torch.gather(
         candidates, -2,
         idx[..., None, None].expand(idx.shape + (1, n_feat)))[..., 0, :]
+
+
+def _solve(systems, rhs):
+    """``torch.linalg.solve_ex`` of (..., F, F) systems: a singular system
+    reports through ``info`` (and inf/NaN in its result) instead of
+    raising, like an LU solve in XLA.
+
+    On the CPU with more than one torch thread the systems are solved one
+    at a time: torch's batched CPU solve (2.13.0+cpu, MKL) stalls there
+    from about 200 unknowns (the ant's 230 features), printing SLASWP
+    parameter errors. One thread keeps the batched call and its digits.
+    """
+    if systems.device.type != "cpu" or torch.get_num_threads() == 1:
+        return torch.linalg.solve_ex(systems, rhs)
+    n = systems.shape[-1]
+    outs = [torch.linalg.solve_ex(a, b) for a, b in
+            zip(systems.reshape(-1, n, n), rhs.reshape(-1, n))]
+    return (torch.stack([x for x, _ in outs]).reshape(rhs.shape),
+            torch.stack([i for _, i in outs]).reshape(rhs.shape[:-1]))
 
 
 def predict_linear_baseline(feats, coeffs):

@@ -1,11 +1,12 @@
-"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+"""Builds the port's CUDA kernels with nvcc, and its host libraries (the
+async log and checkpoint writers) with g++, and loads them with ctypes.
 
-Each kernel is compiled from its source text into a shared library with a
-plain C entry point, under ``promp_tpu_torch/_build/`` (git-ignored), at
-the first CUDA call and never at import. The library's name hashes the
-source and the flags, so a changed source or flag builds anew and an
-unchanged one is reused. ``build_all`` starts one nvcc per source at once
-and waits for all of them.
+Each library is compiled from its source text into a shared library with
+a plain C entry point, under ``promp_tpu_torch/_build/`` (git-ignored), at
+its first use and never at import. The library's name hashes the source
+and the flags, so a changed source or flag builds anew and an unchanged
+one is reused. ``build_all`` starts one compiler per source at once and
+waits for all of them; a failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 # sm_90a: Hopper; a plain-C interface, so no PyTorch headers to compile
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall")
 
 _loaded = {}
 
@@ -44,6 +46,14 @@ def find_nvcc():
     raise RuntimeError("nvcc not found; searched: " + ", ".join(searched))
 
 
+def find_gxx():
+    """g++ on PATH; raises when there is none."""
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found on PATH")
+    return path
+
+
 def read_source(filename):
     with open(os.path.join(CSRC_DIR, filename)) as f:
         return f.read()
@@ -63,11 +73,11 @@ class BuildResult:
         self.path, self.seconds, self.log = path, seconds, log
 
 
-def build_all(jobs):
+def build_all(jobs, compiler=find_nvcc, suffix=".cu"):
     """Compile each ``(name, source, flags)`` in ``jobs`` unless its library
-    exists, one nvcc process per job, all started together; returns one
-    ``BuildResult`` per job, in order. Raises with nvcc's output if any
-    build fails."""
+    exists, one ``compiler()`` process per job (nvcc unless given), all
+    started together; returns one ``BuildResult`` per job, in order. Raises
+    with the compiler's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     running, results, failures = [], [], []
     try:
@@ -76,14 +86,19 @@ def build_all(jobs):
             if os.path.exists(lib):
                 running.append((lib, None, None, name, 0.0))
                 continue
-            src = lib[:-3] + ".cu"
-            with open(src, "w") as f:
+            # the source beside its library, renamed into place whole, so
+            # that another process building the same library at once never
+            # reads it half written
+            src = lib[:-3] + suffix
+            fd, tmp_src = tempfile.mkstemp(dir=BUILD_DIR, suffix=suffix)
+            with os.fdopen(fd, "w") as f:
                 f.write(source)
+            os.replace(tmp_src, src)
             fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
             os.close(fd)
             running.append((lib, None, tmp, name, 0.0))
             proc = subprocess.Popen(
-                [find_nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE,
+                [compiler(), *flags, "-o", tmp, src], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
             running[-1] = (lib, proc, tmp, name, time.time())
         for lib, proc, tmp, name, t0 in running:
@@ -93,8 +108,8 @@ def build_all(jobs):
             log, _ = proc.communicate()
             seconds = time.time() - t0
             if proc.returncode != 0:
-                failures.append(f"nvcc failed on {name} ({proc.returncode}):"
-                                f"\n{log}")
+                failures.append(f"{os.path.basename(proc.args[0])} failed "
+                                f"on {name} ({proc.returncode}):\n{log}")
                 continue
             os.replace(tmp, lib)
             results.append(BuildResult(lib, seconds, log))
@@ -113,6 +128,13 @@ def build_all(jobs):
 def build(name, source, flags):
     """``build_all`` of one job; returns the library's path."""
     return build_all([(name, source, flags)])[0].path
+
+
+def build_host(name, filename):
+    """The library of the C++ host source ``csrc/<filename>``, built with
+    g++ unless it exists; returns its path."""
+    return build_all([(name, read_source(filename), HOST_FLAGS)],
+                     compiler=find_gxx, suffix=".cpp")[0].path
 
 
 def load(path):

@@ -320,7 +320,10 @@ class Trainer:
             train_state=_to_host(self.train_state),
             opt_state=_to_host(self.opt_state),
             hparams=dict(self.hparams),
+            # the generator's state: a CPU byte tensor for a generator on
+            # either device (seed and offset of the card's Philox)
             rng=self._gen.get_state().numpy(),
+            rng_device=self._gen.device.type,
             config=dict(
                 meta_batch_size=self.meta_batch_size,
                 rollouts_per_meta_task=self.rollouts_per_meta_task,
@@ -330,10 +333,18 @@ class Trainer:
         )
 
     def restore(self, snapshot):
-        """Resume from ``get_itr_snapshot``'s output."""
+        """Resume from ``get_itr_snapshot``'s output, taken on a Trainer
+        on the same kind of device (a generator's state is
+        device-specific)."""
+        rng_device = snapshot.get("rng_device", self._gen.device.type)
+        if rng_device != self._gen.device.type:
+            raise ValueError(f"the snapshot's generator ran on "
+                             f"{rng_device!r}, this Trainer's on "
+                             f"{self._gen.device.type!r}")
         to_dev = lambda a: torch.as_tensor(a, device=self.device)
         self.train_state = tree_map(to_dev, snapshot["train_state"])
         self.opt_state = tree_map(to_dev, snapshot["opt_state"])
         self.hparams = dict(snapshot["hparams"])
-        self._gen.set_state(torch.as_tensor(snapshot["rng"]))
+        self._gen.set_state(torch.as_tensor(snapshot["rng"],
+                                            dtype=torch.uint8))
         self.start_itr = snapshot["itr"] + 1

@@ -36,7 +36,15 @@ def test_sources_found():
                    "envs/mujoco/rotations.py", "envs/mujoco/ant.py",
                    "envs/mujoco/humanoid.py", "optimizers/trpo.py",
                    "algos/vpg_maml.py", "algos/trpo_maml.py",
-                   "algos/dice_maml.py", "sampling/dice_processor.py"):
+                   "algos/dice_maml.py", "sampling/dice_processor.py",
+                   "run.py", "run_scripts/pro-mp_run_point_mass.py",
+                   "run_scripts/pro-mp_run_mujoco.py",
+                   "run_scripts/maml_run_mujoco.py",
+                   "run_scripts/e-maml_run_mujoco.py",
+                   "ops/baseline_classes.py", "utils/checkpoints.py",
+                   "utils/native.py", "utils/logger.py", "utils/misc.py",
+                   "experiment_utils/run_sweep.py", "envs/point/basic.py",
+                   "envs/point/walls.py"):
         assert f"promp_tpu_torch/{module}" in SOURCES, module
 
 

@@ -75,10 +75,11 @@ RUN = dict(meta_batch_size=N_T, rollouts_per_meta_task=N_E,
            max_path_length=T, n_itr=1, seed=SEED)
 
 
-def make_port_trainer(backend, reward_type="sparse", **kw):
+def make_port_trainer(backend, reward_type="sparse", n_inner=1, **kw):
     env = tenvs.normalize(tenvs.MetaPointEnvCorner(reward_type=reward_type))
     policy = TPolicy(obs_dim=2, action_dim=2, hidden_sizes=HIDDEN)
-    return TTrainer(algo=TProMP(policy=policy, **ALGO), env=env,
+    algo = TProMP(policy=policy, **dict(ALGO, num_inner_grad_steps=n_inner))
+    return TTrainer(algo=algo, env=env,
                     policy=policy, sample_processor=TProc(**PROC),
                     rollout_backend=backend, **dict(RUN, **kw))
 
@@ -100,7 +101,8 @@ def locomotion_reset_draw(env, key):
 
 def jax_reset_draws(jenv, reset_keys, tasks):
     """The port's reset draws for (tasks, envs) reset keys: the JAX reset's
-    own draw for a locomotion env, else the point mass's initial obs."""
+    own draw for a locomotion env, else the state the JAX reset returns
+    (a point mass's draw)."""
     inner = getattr(jenv, "env", jenv)
     if isinstance(inner, JLocomotionEnv):
         return jax.vmap(jax.vmap(partial(locomotion_reset_draw, inner)))(
@@ -185,12 +187,14 @@ def jax_phases():
     return {}
 
 
-def run_both(backend, jax_phases):
+def run_both(backend, jax_phases, n_inner=1):
     """Returns (jax metrics, jax params, port metrics, port params, initial
-    params, reward-branch flips)."""
+    params, reward-branch flips), over ``n_inner`` inner steps (the phases
+    in ``jax_phases`` must have been made for as many)."""
     jenv = jenvs.normalize(jenvs.MetaPointEnvCorner())
     jpol = JPolicy(obs_dim=2, action_dim=2, hidden_sizes=HIDDEN)
-    jtr = JTrainer(algo=JProMP(policy=jpol, **ALGO), env=jenv, policy=jpol,
+    jalgo = JProMP(policy=jpol, **dict(ALGO, num_inner_grad_steps=n_inner))
+    jtr = JTrainer(algo=jalgo, env=jenv, policy=jpol,
                    sample_processor=JProc(**PROC),
                    rollout_backend="pallas" if backend == "kernel" else "scan",
                    **RUN)
@@ -203,11 +207,12 @@ def run_both(backend, jax_phases):
     jtr.train_state = dict(jtr.train_state, params=params)
     init = {k: np.asarray(v) for k, v in params.items()}
     jtr._rng, it_key = jax.random.split(jtr._rng)
-    keys = jax.random.split(it_key, 3)
+    keys = jax.random.split(it_key, n_inner + 2)
     tasks = jtr._update_tasks(keys[0])
-    draws = [_round_draws(jenv, tasks, keys[i + 1], backend) for i in (0, 1)]
+    draws = [_round_draws(jenv, tasks, keys[i + 1], backend)
+             for i in range(n_inner + 1)]
 
-    ttr = make_port_trainer(backend, device="cpu")
+    ttr = make_port_trainer(backend, device="cpu", n_inner=n_inner)
     ttr.train_state["params"] = from_numpy_params(init, "cpu")
     port_trajs = []
     port_rollout = ttr._rollout
@@ -217,7 +222,7 @@ def run_both(backend, jax_phases):
 
     task_params = jpol.replicate(jtr.train_state["params"], N_T)
     all_data, jm, n_flips = [], {}, 0
-    for step in (0, 1):
+    for step in range(n_inner + 1):
         traj = jtr._rollout(task_params, tasks, keys[step + 1], step == 0)
         traj, flips = _round_check(port_trajs[step], traj, tasks)
         n_flips += flips
@@ -225,7 +230,7 @@ def run_both(backend, jax_phases):
         for k, v in samples.pop("stats").items():
             jm[f"Step_{step}-{k}"] = v
         all_data.append(samples)
-        if step == 0:
+        if step < n_inner:
             task_params = jtr._adapt(task_params,
                                      jtr.train_state["step_sizes"], samples)
     train_state, _, metrics = jtr._outer(jtr.train_state, jtr.opt_state,
@@ -244,11 +249,11 @@ def torch_single_thread():
     torch.set_num_threads(n_threads)
 
 
-def check_parity(result, max_flips):
+def check_parity(result, max_flips, n_inner=1):
     jm, jparams, tm, tparams, init, flips = result
     assert flips <= max_flips, f"{flips} reward-branch flips at ties"
-    for k in ("LossBefore", "LossAfter", "KLInner", "KLOuter",
-              "Step_0-AverageReturn", "Step_1-AverageReturn"):
+    for k in ("LossBefore", "LossAfter", "KLInner", "KLOuter") + tuple(
+            f"Step_{step}-AverageReturn" for step in range(n_inner + 1)):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), err_msg=k,
                                    **METRIC_TOL)
     assert int(tm["SkippedUpdates"]) == int(jm["SkippedUpdates"]) == 0
