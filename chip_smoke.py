@@ -114,7 +114,25 @@ Phases, each printing one JSON line:
      launch files, generated and not run;
  20. native: every snapshot of phases 15-19 went through the g++-built
      AsyncCheckpointWriter with 0 errors; one AsyncFileSink round trip.
-Each phase from 15 on prints its wall time (``seconds``).
+ 21. float64_compat: ProMP in float64 through the seed-exact sampler
+     (sampling/compat_sampler.py), 2 meta-iterations at 40 x 20 x 100 on
+     the card (finite, no skipped update, K1 launched 0 times), and at
+     COMPAT_CHECK on the card against the same run on the CPU: parameters
+     within 1e-6;
+ 22. generic_vs_k2: one env step of the generic engine (Engine.generic_chain,
+     plain PyTorch) against K2 on the cheetah and the ant, k2_inputs'
+     rollout and random states at 800 envs, at the K2 bars; both times and
+     the generic step's aten operations;
+ 23. trainer_swimmer: 2 ProMP meta-iterations on
+     normalize(SwimmerRandVelEnv()) at the main path's width: 800 generic
+     substeps an iteration, K2 and K3 0; the aten operations of one env
+     step;
+ 24. trainer_sawyer: one ProMP meta-iteration on each of the four Sawyer
+     envs, 800 generic substeps each, K2 and K3 0; pick-and-place's
+     grasped steps (printed, not a gate);
+ 25. render_rollout: sampling/render.py's rollout of one 100-step episode
+     on the swimmer and the point mass: shapes and finite values.
+Phases 15-21, 23 and 24 print their wall time (``seconds``).
 Then the {"kernels": [...]} line (each kernel's launches on the slice's
 main path, and by path in ``launches_by_path``), the card's name and power limit as
 nvidia-smi prints them, and the final {"ok": true, ...} line. Any failure
@@ -464,10 +482,11 @@ RETURN_KEYS = ("Step_0-AverageReturn", "Step_1-AverageReturn")
 
 
 def _train(env, device, backend, counters, extra_keys=(), loss_keys=PROMP_KEYS,
-           time_keys=TIME_KEYS, n_itr=N_ITR, **trainer_kw):
+           time_keys=TIME_KEYS, n_itr=N_ITR, on_trainer=None, **trainer_kw):
     """Runs ``n_itr`` meta-iterations of ``_trainer(env, device, backend,
     **trainer_kw)`` with every launch count in ``counters`` ({name: (kernel
-    wrapper, attribute)}) set to 0 just before. Returns a dict: the
+    wrapper, attribute)}) set to 0 just before; ``on_trainer(trainer)``,
+    if given, may wrap the trainer's phases first. Returns a dict: the
     per-iteration logged values (``time_keys``, ``loss_keys``, the returns
     and ``extra_keys``), seconds, {name: launches}, the number of episodes
     that ended inside a round, the DICE mask's mean of each round where the
@@ -494,6 +513,8 @@ def _train(env, device, backend, counters, extra_keys=(), loss_keys=PROMP_KEYS,
             return out
 
         trainer._rollout, trainer._process = counted, processed
+        if on_trainer is not None:
+            on_trainer(trainer)
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         t0 = time.time()
@@ -935,20 +956,9 @@ def phase_step_ops(device):
     and one pack of the walker's multipliers (inside each walker step)."""
     from promp_tpu_torch.envs import make_env, normalize
     from promp_tpu_torch.ops.substep_kernel import pack_mods
-    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
-    from promp_tpu_torch.sampling.rollout import rollout
 
     def per_step(env):
-        gen = torch.Generator(device=device).manual_seed(3)
-        policy = GaussianMLPPolicy(obs_dim=env.obs_dim,
-                                   action_dim=env.action_dim,
-                                   hidden_sizes=HIDDEN)
-        params = policy.replicate(policy.init(gen, device), N_TASKS)
-        tasks = env.sample_tasks(gen, N_TASKS, device)
-        n = [_dispatched_ops(lambda: rollout(env, policy, params, tasks, gen,
-                                             N_ENVS, horizon))
-             for horizon in (1, 2)]
-        return n[1] - n[0]
+        return _step_ops(env, device)
 
     cheetah = normalize(make_env("HalfCheetahRandVelEnv"))
     walker = normalize(make_env("Walker2DRandParamsEnv"))
@@ -1202,6 +1212,315 @@ def phase_trainer_modes(device):
 
 
 # ---------------------------------------------------------------- slice 8
+# ----------------------------------------------- slice 9: float64, generic
+# the float64 compat phase: the main path's width on the card, and the
+# width at which the card's run is held against the CPU's (float64 to
+# COMPAT_TOL on the parameters after COMPAT_ITR meta-iterations)
+COMPAT_ITR = 2
+COMPAT_CHECK = (10, 10, HORIZON)
+COMPAT_TOL = 1e-6
+COMPAT_BIAS = 3.0    # output bias: trajectories leave the zero-reward zone
+# the generic engine against K2: the bodies, and the Sawyer envs. The two
+# float32 steps may differ past the K2 bars where a penalty contact sits
+# within rounding of its threshold (fn = 0: the implicit damping h c J^T J,
+# O(1) against M, switches on or off): one of them then crosses it and
+# the other does not. Such an env passes only if the float64 generic step
+# lies within the bars of one of the two, and at most GENERIC_FLIP_SHARE
+# of a set's envs may (on an H100: 0 of 4,800 cheetah env-steps, 9 of
+# 4,800 ant env-steps, at most 6 in one set of 800; PERF.md)
+GENERIC_BODIES = {"half_cheetah": "HalfCheetahRandVelEnv",
+                  "ant": "AntRandGoalEnv"}
+GENERIC_FLIP_SHARE = 0.02
+SAWYER_ENVS = ("SawyerPushEnv", "SawyerPushSimpleEnv", "SawyerDoorEnv",
+               "SawyerPickAndPlaceEnv")
+GENERIC_ITR = 2       # swimmer iterations
+
+
+def compat_promp(device, n_tasks, n_envs, horizon, n_itr=COMPAT_ITR, seed=1):
+    """``n_itr`` ProMP meta-iterations in float64 at the main path's
+    settings through the port's seed-exact sampler on ``device``, from
+    float64 parameters made on the CPU from ``seed`` (the output bias at
+    COMPAT_BIAS). Returns (final params on the CPU, per-iteration
+    metrics, seconds)."""
+    import numpy as np
+    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
+    from promp_tpu_torch.sampling.compat_sampler import (
+        CompatPointMassSampler, batch_paths)
+
+    policy = GaussianMLPPolicy(obs_dim=2, action_dim=2, hidden_sizes=HIDDEN)
+    gen = torch.Generator().manual_seed(seed)
+    params = policy.init(gen, "cpu", dtype=torch.float64)
+    params["mean_network/output/bias"].fill_(COMPAT_BIAS)
+    params = {k: v.to(device) for k, v in params.items()}
+    algo, proc = _promp(policy), _processor()
+    ts = {"params": params, "step_sizes": algo.init_step_sizes(params)}
+    opt = algo.init_opt_state(ts)
+    hparams = dict(inner_kl_coeff=np.full((1,), algo.init_inner_kl_penalty,
+                                          np.float64),
+                   clip_eps=np.float64(algo.clip_eps))
+    sampler = CompatPointMassSampler(policy, n_tasks, n_envs, horizon,
+                                     seed=seed, dtype=torch.float64,
+                                     device=device)
+    iterations = []
+    t0 = time.time()
+    for _ in range(n_itr):
+        tasks = sampler.sample_tasks()
+        task_params = policy.replicate(ts["params"], n_tasks)
+        rounds, it = [], {}
+        for step in (0, 1):
+            paths = sampler.obtain_samples(task_params, tasks,
+                                           floor_std=step == 0)
+            samples = proc.process(batch_paths(paths, device))
+            stats = samples.pop("stats")
+            rounds.append(samples)
+            if step == 0:
+                task_params = algo.adapt(task_params, ts["step_sizes"],
+                                         samples)
+            it[f"Step_{step}-AverageReturn"] = float(stats["AverageReturn"])
+        ts, opt, metrics = algo.optimize_policy(ts, opt, rounds, hparams)
+        it.update({k: float(metrics[k]) for k in PROMP_KEYS})
+        iterations.append(it)
+    seconds = time.time() - t0
+    out = {k: v.detach().cpu() for k, v in ts["params"].items()}
+    for k, v in out.items():
+        if v.dtype != torch.float64 or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"float64_compat: parameter {k} is "
+                               f"{v.dtype} or not finite")
+    return out, iterations, seconds
+
+
+def phase_float64_compat(device):
+    """ProMP through the seed-exact sampler in float64: COMPAT_ITR
+    meta-iterations at the main path's width on the card (finite, K1 not
+    launched), and at COMPAT_CHECK on the card against the same run on the
+    CPU, parameters within COMPAT_TOL."""
+    from promp_tpu_torch.ops.rollout_kernel import pointmass_rollout
+
+    pointmass_rollout.launches = 0
+    _, full, full_s = compat_promp(device, N_TASKS, N_ENVS, HORIZON)
+    k1 = pointmass_rollout.launches
+    card, _, card_s = compat_promp(device, *COMPAT_CHECK)
+    cpu, _, cpu_s = compat_promp("cpu", *COMPAT_CHECK)
+    err = max(float((card[k] - cpu[k]).abs().max()) for k in cpu)
+    emit(dict(phase="float64_compat", width=[N_TASKS, N_ENVS, HORIZON],
+              iterations=full, seconds=full_s, k1_launches=k1,
+              check_width=list(COMPAT_CHECK), check_seconds=dict(
+                  card=card_s, cpu=cpu_s),
+              max_abs_err_params_card_vs_cpu=err, tolerance=COMPAT_TOL))
+    for it in full:
+        if not all(torch.isfinite(torch.tensor(v)) for v in it.values()):
+            raise RuntimeError(f"float64_compat: not finite: {full}")
+    if full[-1]["SkippedUpdates"] != 0:
+        raise RuntimeError(f"float64_compat: Adam skipped updates: {full}")
+    if k1:
+        raise RuntimeError(f"float64_compat: K1 launched {k1} times")
+    if not err <= COMPAT_TOL:
+        raise RuntimeError(f"float64_compat: the card's parameters lie "
+                           f"{err} from the CPU's (bar {COMPAT_TOL})")
+
+
+def _env_excess(got, want, tol):
+    """Each env's largest |got - want| / (atol + rtol * |want|)."""
+    return ((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
+            ).amax(-1)
+
+
+def _pair_excess(q, qd, q_ref, qd_ref):
+    return torch.maximum(_env_excess(q, q_ref.to(q.dtype), K2_Q_TOL),
+                         _env_excess(qd, qd_ref.to(qd.dtype), K2_QD_TOL))
+
+
+def phase_generic_vs_k2(device):
+    """One env step of the generic engine against K2 on the card, on the
+    cheetah and the ant: the rollout and random states of k2_inputs at
+    800 envs, at the K2 bars (K2's output the reference), the float64
+    generic step the referee where a contact threshold splits the two
+    (GENERIC_FLIP_SHARE); times of both."""
+    from promp_tpu_torch.envs import make_env, normalize
+    from promp_tpu_torch.envs.mujoco.engine import Engine
+    from promp_tpu_torch.ops.substep_kernel import substep_chain
+
+    results = {}
+    for body, env_name in GENERIC_BODIES.items():
+        env = normalize(make_env(env_name))
+        engine = env.env.engine
+        n_steps = env.env.frame_skip * engine.n_substeps
+        kernel = substep_chain(engine, n_steps)
+
+        def generic(q, qd, tau):
+            return engine.generic_chain(q, qd, tau, n_steps)
+
+        checks = []
+        count0 = Engine.generic_substeps
+        sets = k2_inputs(env, device)
+        for label, *ins in sets:
+            qk, qdk = kernel(*ins)
+            qg, qdg = generic(*ins)
+            q64, qd64 = generic(*(x.double() for x in ins))
+            torch.cuda.synchronize()
+            split = _pair_excess(qg, qdg, qk, qdk) > 1
+            # the float64 step within the bars of one of the two
+            sided = ((_pair_excess(qg.double(), qdg.double(), q64, qd64)
+                      <= 1)
+                     | (_pair_excess(qk.double(), qdk.double(), q64, qd64)
+                        <= 1))
+            checks.append(dict(
+                inputs=label, envs=ins[0].shape[0],
+                max_abs_err_q=float((qg - qk).abs().max()),
+                max_abs_err_qd=float((qdg - qdk).abs().max()),
+                excess_q=_excess(qg, qk, K2_Q_TOL),
+                excess_qd=_excess(qdg, qdk, K2_QD_TOL),
+                threshold_splits=int(split.sum()),
+                unexplained=int((split & ~sided).sum()),
+                finite=all(bool(torch.isfinite(x).all())
+                           for x in (qg, qdg))))
+        substeps = Engine.generic_substeps - count0
+        q, qd, tau = sets[0][1:]
+        result = dict(phase="generic_vs_k2", model=body, n_steps=n_steps,
+                      checks=checks, generic_substeps=substeps,
+                      threshold_splits=sum(c["threshold_splits"]
+                                           for c in checks),
+                      tolerances=dict(q=K2_Q_TOL, qd=K2_QD_TOL),
+                      k2_ms=median_ms(lambda: kernel(q, qd, tau)),
+                      generic_ms=median_ms(lambda: generic(q, qd, tau),
+                                           runs=PLAIN_RUNS_ADDED),
+                      generic_ops=_dispatched_ops(
+                          lambda: generic(q, qd, tau)))
+        emit(result)
+        for check in checks:
+            if not check["finite"]:
+                raise RuntimeError(f"generic engine not finite: {check}")
+            if (check["unexplained"] or check["threshold_splits"]
+                    > GENERIC_FLIP_SHARE * check["envs"]):
+                raise RuntimeError(f"generic engine disagrees with K2 on "
+                                   f"{body}: {check}")
+        # a float32 and a float64 generic chain for every set
+        if substeps != 2 * n_steps * len(sets):
+            raise RuntimeError(f"{substeps} generic substeps, expected "
+                               f"{2 * n_steps * len(sets)}")
+        results[body] = result
+    return results
+
+
+def _generic_counters():
+    """K2's and K3's launch counters and the generic substeps' count."""
+    from promp_tpu_torch.envs.mujoco.engine import Engine
+    return dict(_k2_counters(), generic=(Engine, "generic_substeps"))
+
+
+def phase_trainer_swimmer(device):
+    """GENERIC_ITR ProMP meta-iterations on normalize(SwimmerRandVelEnv())
+    at the main path's width: every env step by the generic substep (2 x
+    100 x frame_skip x n_substeps an iteration), K2 and K3 not launched;
+    the aten operations of one env step."""
+    from promp_tpu_torch.envs import make_env, normalize
+
+    env = normalize(make_env("SwimmerRandVelEnv"))
+    per_itr = 2 * HORIZON * env.env.frame_skip * env.env.engine.n_substeps
+    extra = tuple(f"Step_{k}-{key}" for k in (0, 1) for key in (
+        "Env-reward_fwd", "AverageForwardProgress"))
+    run = _train(env, device, "scan", _generic_counters(), extra_keys=extra,
+                 n_itr=GENERIC_ITR)
+    ops = _step_ops(env, device)
+    emit(dict(phase="trainer_swimmer", iterations=run["iterations"],
+              seconds=run["seconds"], launches=run["launches"],
+              step_ops=ops))
+    _expect_launches("trainer_swimmer", run["launches"],
+                     dict(k2=0, k3=0, generic=per_itr * GENERIC_ITR))
+    return run["launches"]["generic"]
+
+
+def phase_trainer_sawyer(device):
+    """One ProMP meta-iteration on each Sawyer env at the main path's
+    width, by the generic substep, K2 and K3 not launched; for
+    pick-and-place the number of grasped steps (not a gate: random
+    weights may grasp nothing)."""
+    from promp_tpu_torch.envs import make_env, normalize
+
+    results = {}
+    for name in SAWYER_ENVS:
+        env = normalize(make_env(name))
+        per_itr = 2 * HORIZON * env.env.frame_skip * env.env.engine.n_substeps
+        grasped = []
+
+        def count_grasps(trainer):
+            sample = trainer._rollout
+
+            def counted(*args):
+                out = sample(*args)
+                if "pickRew" in out["env_infos"]:
+                    grasped.append((out["env_infos"]["pickRew"] != 0).sum())
+                return out
+            trainer._rollout = counted
+
+        run = _train(env, device, "scan", _generic_counters(), n_itr=1,
+                     on_trainer=count_grasps)
+        result = dict(phase="trainer_sawyer", env=name,
+                      iterations=run["iterations"], seconds=run["seconds"],
+                      launches=run["launches"])
+        if grasped:
+            result["grasped_steps"] = int(sum(int(g) for g in grasped))
+        emit(result)
+        _expect_launches(f"trainer_sawyer {name}", run["launches"],
+                         dict(k2=0, k3=0, generic=per_itr))
+        results[name] = result
+    return results
+
+
+def _step_ops(env, device):
+    """aten operations one scan-engine env step of ``env`` dispatches at
+    the main path's shape (a 2-step rollout minus a 1-step one)."""
+    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
+    from promp_tpu_torch.sampling.rollout import rollout
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    policy = GaussianMLPPolicy(obs_dim=env.obs_dim, action_dim=env.action_dim,
+                               hidden_sizes=HIDDEN)
+    params = policy.replicate(policy.init(gen, device), N_TASKS)
+    tasks = env.sample_tasks(gen, N_TASKS, device)
+    n = [_dispatched_ops(lambda: rollout(env, policy, params, tasks, gen,
+                                         N_ENVS, horizon))
+         for horizon in (1, 2)]
+    return n[1] - n[0]
+
+
+def phase_render_rollout(device):
+    """render.rollout on the swimmer and the point mass on the card: one
+    episode each, its shapes and finite values."""
+    from promp_tpu_torch.envs import make_env
+    from promp_tpu_torch.policies.gaussian_mlp import GaussianMLPPolicy
+    from promp_tpu_torch.sampling import render
+
+    out = {}
+    for name, horizon in (("SwimmerRandVelEnv", HORIZON),
+                          ("MetaPointEnvCorner", HORIZON)):
+        env = make_env(name)
+        gen = torch.Generator(device=device).manual_seed(5)
+        policy = GaussianMLPPolicy(obs_dim=env.obs_dim,
+                                   action_dim=env.action_dim,
+                                   hidden_sizes=HIDDEN)
+        params = policy.init(gen, device)
+        task = env.sample_tasks(gen, 1, device)[0]
+        traj = render.rollout(env, policy, params, task, gen,
+                              max_path_length=horizon)
+        shapes = dict(observations=list(traj["observations"].shape),
+                      actions=list(traj["actions"].shape),
+                      rewards=list(traj["rewards"].shape))
+        want = dict(observations=[horizon, env.obs_dim],
+                    actions=[horizon, env.action_dim], rewards=[horizon])
+        leaves = [traj["observations"], traj["actions"], traj["rewards"]]
+        states = traj["states"]
+        leaves += list(states.values()) if isinstance(states, dict) \
+            else [states]
+        finite = all(bool(torch.isfinite(x).all()) for x in leaves)
+        out[name] = dict(shapes=shapes, finite=finite,
+                         return_=float(traj["rewards"].sum()))
+        if shapes != want or not finite:
+            raise RuntimeError(f"render_rollout {name}: {out[name]}, "
+                               f"expected shapes {want}")
+    emit(dict(phase="render_rollout", envs=out))
+
+
 SCRIPTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "promp_tpu_torch", "run_scripts")
 MUJOCO_SCRIPTS = ("pro-mp_run_mujoco", "maml_run_mujoco",
@@ -1621,6 +1940,11 @@ def main():
     k2_3d_launches = {body: phase_trainer_3d(device, body)
                       for body in K2_ENVS_3D}
     phase_step_ops(device)
+    phase_float64_compat(device)
+    phase_generic_vs_k2(device)
+    phase_trainer_swimmer(device)
+    phase_trainer_sawyer(device)
+    phase_render_rollout(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as work:
         k2_paths.update(phase_run_scripts(device, work))
         k3_config3, k2_config3_ant = phase_config3(device, work)

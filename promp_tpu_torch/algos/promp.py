@@ -94,8 +94,12 @@ class ProMP(MAMLAlgo):
         (train_state, opt_state, metrics) with 0-dim tensor metrics.
         """
         device = train_state["params"]["mean_network/output/bias"].device
-        inner_kl_coeff = torch.as_tensor(hparams["inner_kl_coeff"],
-                                         dtype=torch.float32, device=device)
+        # the coefficients in the parameters' dtype (float64 in the
+        # float64 mode)
+        inner_kl_coeff = torch.as_tensor(
+            hparams["inner_kl_coeff"],
+            dtype=train_state["params"]["mean_network/output/bias"].dtype,
+            device=device)
         clip_eps = float(hparams["clip_eps"])
         optimizer = self.make_optimizer()
 

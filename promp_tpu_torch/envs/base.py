@@ -54,6 +54,16 @@ def task_batch_shape(task, event_ndim=0):
     return tuple(leaf.shape[:leaf.dim() - event_ndim])
 
 
+def state_dtype(task, draw=None):
+    """The dtype of a reset's state: the pre-drawn draw's (its first
+    tensor's), else a floating task's, else float32. The float64 mode
+    has no knob of its own: float64 draws or tasks give float64 states."""
+    if draw is not None:
+        return (draw[0] if isinstance(draw, (tuple, list)) else draw).dtype
+    leaf = task_leaf(task)
+    return leaf.dtype if leaf.is_floating_point() else torch.float32
+
+
 def task_expand(tasks, n_envs):
     """(tasks, ...) task tensors -> (tasks, n_envs, ...) views."""
     def expand(v):
@@ -74,13 +84,11 @@ class Box:
     def dim(self):
         return math.prod(self.shape)
 
-    def low_array(self, device=None):
-        return torch.full(self.shape, self.low, dtype=torch.float32,
-                          device=device)
+    def low_array(self, device=None, dtype=torch.float32):
+        return torch.full(self.shape, self.low, dtype=dtype, device=device)
 
-    def high_array(self, device=None):
-        return torch.full(self.shape, self.high, dtype=torch.float32,
-                          device=device)
+    def high_array(self, device=None, dtype=torch.float32):
+        return torch.full(self.shape, self.high, dtype=dtype, device=device)
 
 
 class TaskEnv:

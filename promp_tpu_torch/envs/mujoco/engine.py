@@ -1,26 +1,35 @@
-"""Articulated rigid-body engine (port of promp_tpu/envs/mujoco/engine.py:
-the ``Engine.step`` route of ``spatial_ok`` bodies, and the kinematics,
-body Jacobians, body velocities and ground-contact forces that the ant and
-humanoid observations read).
+"""Articulated rigid-body engine (port of promp_tpu/envs/mujoco/engine.py).
 
 ``Engine.step`` advances a batch of env states by ``frame_skip`` MJCF
 frames: it clips the control to the actuators' ranges, applies the gears
-at the actuated dofs, and runs the chain of ``frame_skip * n_substeps``
-implicit-Euler substeps as one call of K2, or of K3 when rand-params
-physics mods are given (ops/substep_kernel.py): the CUDA kernel on a CUDA
-tensor, its plain PyTorch version on a CPU tensor. A body that the spatial
-substep does not cover (fluid, contact pairs, ground-skip spheres:
-swimmer, sawyer) and a mod key that K3 does not take raise; the port has
-no other route for them yet, and never falls back.
+at the actuated dofs, and runs ``frame_skip * n_substeps`` implicit-Euler
+substeps by one of two routes, as the JAX ``Engine.step`` picks them:
 
-``fk``, ``body_velocities``, ``_contact_terms``, ``contact_torque`` and
-``contact_wrench`` are plain batched PyTorch over any leading batch shape
-(plain JAX in the reference, so no kernel): the loop over bodies and their
-joints is static, as in JAX, and each takes the forward kinematics ``kin``
-where the caller already has them.
+  * a ``spatial_ok`` body, with no mods or with mod keys among the four
+    that K3 takes: one call of K2, or of K3 when rand-params physics mods
+    are given (ops/substep_kernel.py), the CUDA kernel on a CUDA tensor,
+    its plain PyTorch version on a CPU tensor;
+  * any other body (fluid: the swimmer; sphere-sphere pairs and
+    ground-skip spheres: the Sawyer scenes) or mod key: the generic
+    substep, a loop of ``substep`` calls in plain batched PyTorch on the
+    tensors' own device (plain JAX in the reference, so no kernel). It
+    reads only the mod keys ``body_mass``, ``body_inertia``,
+    ``dof_damping`` and ``friction``, as JAX's ``_phys`` does.
+
+No route falls back to another or to the CPU. The generic substep runs its
+matrix products at full float32: on a CUDA tensor it turns TF32 off for
+its duration (the JAX package pins ``Precision.HIGHEST`` there).
+
+``fk``, the Jacobians, the mass matrix, the bias forces (``rnea_bias``),
+the contact, pair, fluid and limit terms are plain batched PyTorch over
+any leading batch shape: the loop over bodies and their joints is static,
+as in JAX, and each takes the forward kinematics ``kin`` where the caller
+already has them. The dtype of the state decides the arithmetic's: float64
+states step in float64 on the generic route (K2 and K3 take float32 only).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,9 +37,25 @@ import torch
 
 from promp_tpu_torch.envs.mujoco.model import HINGE, SLIDE, ChainModel
 from promp_tpu_torch.envs.mujoco.rotations import (
-    cross, quat_from_axis_angle, quat_mul, quat_rotate)
-from promp_tpu_torch.envs.mujoco.spatial import spatial_ok
+    cross, quat_from_axis_angle, quat_mul, quat_rotate, quat_to_mat)
+from promp_tpu_torch.envs.mujoco.spatial import MOD_BASE_NDIM, spatial_ok
 from promp_tpu_torch.ops import substep_kernel
+from promp_tpu_torch.ops.smallsolve import (chol_solve_cols,
+                                            chol_solve_unrolled)
+
+
+@contextlib.contextmanager
+def full_float32(device):
+    """Full-precision float32 matrix products on ``device`` for the body
+    of the ``with``: TF32 off on a CUDA device, restored after."""
+    if device.type != "cuda" or not torch.backends.cuda.matmul.allow_tf32:
+        yield
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = True
 
 
 @dataclass(frozen=True)
@@ -87,21 +112,16 @@ class Engine:
         ``qd``: (..., nv); ``ctrl``: (..., nu), any common batch shape.
         ``mods``: rand-params multipliers, a dict of tensors with that batch
         shape (or one that broadcasts to it) in front of each key's own axes
-        (envs/mujoco/rand_params.py); packed anew each call."""
+        (envs/mujoco/rand_params.py); packed anew each call. A
+        ``spatial_ok`` body whose mod keys are among K3's four takes K2 or
+        K3, anything else the generic substep (``generic_step``)."""
         m = self.model
-        if not spatial_ok(m):
-            raise NotImplementedError(
-                f"Engine.step on '{m.name}': the model is not spatial_ok "
-                "(fluid, contact pairs or ground-skip spheres), and the "
-                "generic engine is not ported yet")
         n_steps = frame_skip * self.n_substeps
         # the keys in JAX's order (engine.py: tuple(sorted(mods)))
         mod_keys = () if mods is None else tuple(sorted(mods))
-        try:
-            chain = self._chain(n_steps, mod_keys)
-        except NotImplementedError as e:
-            raise NotImplementedError(f"Engine.step on '{m.name}': {e}") \
-                from e
+        if not spatial_ok(m) or not set(mod_keys) <= set(MOD_BASE_NDIM):
+            return self.generic_step(q, qd, ctrl, frame_skip, mods)
+        chain = self._chain(n_steps, mod_keys)
         tau = self.actuation(ctrl)
         shape = q.shape
         flat = lambda x: x.reshape(-1, m.nv).contiguous()
@@ -123,7 +143,7 @@ class Engine:
         key = (dtype, device)
         if key not in cache:
             m = self.model
-            t = lambda a: torch.as_tensor(np.array(a, np.float32),
+            t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                           dtype=dtype, device=device)
             anc = m.ancestor_mask()
             cache[key] = dict(
@@ -256,7 +276,6 @@ class Engine:
         the contact points' Jacobian and the per-contact normal damping,
         tangential damping and normal stiffness active at this state
         (..., nc). (JAX ``Engine._contact_terms``.)"""
-        m = self.model
         c = self.consts(q.dtype, q.device)
         if kin is None:
             kin = self.fk(q)
@@ -272,14 +291,11 @@ class Engine:
         fn = torch.clamp_min(fn, 0.0) * in_contact
         vt = vel[..., :2]
         vt_norm = torch.sqrt(torch.sum(vt ** 2, dim=-1) + 1e-8)
-        friction = self._phys(mods, "friction", float(m.friction))
-        if torch.is_tensor(friction) and friction.dim():
-            friction = friction[..., None]
         # cone-aware tangential coefficient: c_t inside the cone,
         # mu fn / |vt| once saturated
         ct_eff = torch.minimum(
             torch.full_like(fn, self.contact_tangential_damping),
-            friction * fn / vt_norm) * in_contact
+            self._friction(mods) * fn / vt_norm) * in_contact
         ft = -ct_eff[..., None] * vt
         force = torch.cat([ft, fn[..., None]], dim=-1)
         tau = torch.einsum("...civ,...ci->...v", J, force)
@@ -311,3 +327,330 @@ class Engine:
         torque = cross(points - kin["com"][..., body_idx, :], force)
         return wrench.index_add_(-2, body_idx,
                                  torch.cat([torque, force], dim=-1))
+
+    # ------------------------------------------------------- generic engine
+    generic_substeps = 0   # generic substeps run, over every engine
+
+    def _generic_consts(self, dtype, device):
+        """The model arrays of the generic substep as tensors on
+        ``device``, made once a device and dtype."""
+        cache = self.__dict__.setdefault("_generic_cache", {})
+        key = (dtype, device)
+        if key not in cache:
+            m = self.model
+            t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                          dtype=dtype, device=device)
+            c = self.consts(dtype, device)
+            jr = np.asarray(m.jnt_range, np.float64)
+            anc = m.ancestor_mask()
+            con_body = np.asarray(m.con_body, np.int64)
+            ia, ib = np.asarray(m.pair_a, np.int64), np.asarray(m.pair_b,
+                                                                np.int64)
+            cache[key] = dict(
+                R_i=quat_to_mat(c["body_iquat"]),
+                armature=torch.diag(t(m.dof_armature)),
+                damping=t(m.dof_damping), stiffness=t(m.jnt_stiffness),
+                springref=t(m.jnt_springref),
+                lim_lo=t(jr[:, 0]), lim_hi=t(jr[:, 1]),
+                limited=t(np.abs(jr).sum(1) > 0),
+                dof_anc=t(m.dof_ancestor_strict()),
+                body_anc_t=t(anc.T),
+                base_acc=t([0.0, 0.0, 0.0, 0.0, 0.0, m.gravity]),
+                eye_nv=torch.eye(m.nv, dtype=dtype, device=device),
+                eye3=torch.eye(3, dtype=dtype, device=device),
+                h=torch.tensor(m.timestep / self.n_substeps, dtype=dtype,
+                               device=device),
+                pair_a=torch.as_tensor(ia, device=device),
+                pair_b=torch.as_tensor(ib, device=device),
+                pair_anc_a=t(anc[con_body[ia]].reshape(-1, m.nv)),
+                pair_anc_b=t(anc[con_body[ib]].reshape(-1, m.nv)))
+        return cache[key]
+
+    def _inertia_world(self, kin, mods):
+        """(mass (..., nb), the rotation of each body's inertial frame in
+        the world R (..., nb, 3, 3), the world inertia about each COM
+        R diag(I) R^T (..., nb, 3, 3))."""
+        c = self.consts(kin["com"].dtype, kin["com"].device)
+        g = self._generic_consts(kin["com"].dtype, kin["com"].device)
+        mass = self._phys(mods, "body_mass", c["body_mass"])
+        R = quat_to_mat(kin["body_quat"]) @ g["R_i"]
+        inertia = self._phys(mods, "body_inertia", c["body_inertia"])
+        I_world = R @ (inertia[..., None] * R.transpose(-1, -2))
+        return mass, R, inertia, I_world
+
+    def _mass_from_kin(self, kin, mods=None):
+        """The joint-space mass matrix (..., nv, nv) from the kinematics:
+        sum_b m_b Jp_b^T Jp_b + Jr_b^T I_b Jr_b, plus the armature."""
+        g = self._generic_consts(kin["com"].dtype, kin["com"].device)
+        Jp, Jr = self._body_jacobians(kin)
+        mass, _, _, I_world = self._inertia_world(kin, mods)
+        M = (torch.einsum("...biv,...biw->...vw",
+                          Jp * mass[..., :, None, None], Jp)
+             + torch.einsum("...biv,...biw->...vw", Jr, I_world @ Jr))
+        return M + g["armature"]
+
+    def mass_matrix(self, q, mods=None):
+        return self._mass_from_kin(self.fk(q), mods)
+
+    def gravity_torque(self, q, mods=None):
+        """The generalized gravity force -dV/dq, V = -sum_b m_b g com_b,z,
+        by autograd through ``fk`` (as JAX takes its gradient)."""
+        c = self.consts(q.dtype, q.device)
+        mass = self._phys(mods, "body_mass", c["body_mass"])
+        with torch.enable_grad():
+            qq = q.detach().requires_grad_(True)
+            potential = -torch.sum(mass * self.model.gravity
+                                   * self.fk(qq)["com"][..., 2])
+            return -torch.autograd.grad(potential, qq)[0]
+
+    def _bias_torque(self, q, qd, mods=None):
+        """Coriolis and centrifugal forces -(Mdot qd) + 1/2 d/dq (qd^T M
+        qd), by autodiff of the mass matrix: the independent oracle of
+        ``rnea_bias`` (rnea_bias == -(_bias_torque + gravity_torque)).
+        Reverse mode only: Mdot qd = d(M qd)/dq qd is the vjp, along qd,
+        of the (linear) vjp of q -> M(q) qd."""
+        with torch.enable_grad():
+            qq = q.detach().requires_grad_(True)
+            M = self.mass_matrix(qq, mods)
+            Mqd = (M @ qd[..., None])[..., 0]
+            u = torch.zeros_like(Mqd, requires_grad=True)
+            (vjp,) = torch.autograd.grad(Mqd, qq, u, create_graph=True)
+            (Mdot_qd,) = torch.autograd.grad(vjp, u, qd, retain_graph=True)
+            quad = torch.autograd.grad(
+                torch.sum(0.5 * torch.sum(Mqd * qd, dim=-1)), qq)[0]
+        return -Mdot_qd + quad
+
+    def rnea_bias(self, q, qd, mods=None, kin=None):
+        """Bias forces C(q, qd) qd + g(q), MuJoCo's qfrc_bias, by a
+        recursive-Newton-Euler velocity pass (qdd = 0, gravity folded in as
+        a base acceleration), in world-aligned Pluecker coordinates
+        re-centred at the root body. M qdd = tau_applied - bias."""
+        c = self.consts(q.dtype, q.device)
+        g = self._generic_consts(q.dtype, q.device)
+        if kin is None:
+            kin = self.fk(q)
+        origin = kin["body_pos"][..., :1, :]
+        anchor = kin["dof_anchor"] - origin            # (..., nv, 3)
+        com = kin["com"] - origin                      # (..., nb, 3)
+        axis = kin["dof_axis"]
+        hinge = c["is_hinge"][:, None]
+
+        # motion subspace S_j = (w, v_O): hinge (a, p x a), slide (0, a)
+        Sw = axis * hinge
+        Sv = torch.where(hinge > 0.0, cross(anchor, axis), axis)
+        S = torch.cat([Sw, Sv], dim=-1)                # (..., nv, 6)
+        Sqd = S * qd[..., None]
+
+        def cross_motion(V, U):
+            w1, v1 = V[..., :3], V[..., 3:]
+            w2, v2 = U[..., :3], U[..., 3:]
+            return torch.cat([cross(w1, w2),
+                              cross(w1, v2) + cross(v1, w2)], dim=-1)
+
+        def cross_force(V, F):
+            w, v = V[..., :3], V[..., 3:]
+            n, f = F[..., :3], F[..., 3:]
+            return torch.cat([cross(w, n) + cross(v, f), cross(w, f)],
+                             dim=-1)
+
+        # Sdot_j = V_parent(j) x_m S_j (S is fixed in its parent frame)
+        Vminus = g["dof_anc"] @ Sqd                    # (..., nv, 6)
+        Sdot_qd = cross_motion(Vminus, S) * qd[..., None]
+        body_anc = c["ancestor"]
+        Vb = body_anc @ Sqd                            # (..., nb, 6)
+        # gravity trick: base acceleration -a_g = (0, (0, 0, -gravity))
+        Ab = body_anc @ Sdot_qd - g["base_acc"]
+
+        mass, _, _, I_c = self._inertia_world(kin, mods)
+
+        def inertia_apply(V):
+            w, v = V[..., :3], V[..., 3:]
+            f = mass[..., None] * (v + cross(w, com))
+            n = (I_c @ w[..., None])[..., 0] + cross(com, f)
+            return torch.cat([n, f], dim=-1)
+
+        Fb = inertia_apply(Ab) + cross_force(Vb, inertia_apply(Vb))
+        # tau_j = S_j . sum over the bodies of j's subtree of F_b
+        return torch.sum(S * (g["body_anc_t"] @ Fb), dim=-1)
+
+    def fluid_torque(self, q, qd, mods=None, kin=None):
+        """MuJoCo's inertia-box fluid model (the swimmer's medium): per
+        body an equivalent box from the diagonal inertia, velocities in the
+        body's inertial frame at the COM, viscous drag (F = -3 pi d mu v,
+        T = -pi d^3 mu w, d the box's mean side) and quadratic density drag
+        per local axis; massless bodies are skipped."""
+        m = self.model
+        if m.density == 0.0 and m.viscosity == 0.0:
+            return torch.zeros_like(q)
+        c = self.consts(q.dtype, q.device)
+        if kin is None:
+            kin = self.fk(q)
+        Jp, Jr = self._body_jacobians(kin)
+        qdv = qd[..., None, :, None]
+        v = (Jp @ qdv)[..., 0]                         # (..., nb, 3)
+        w = (Jr @ qdv)[..., 0]
+        mass, R, inertia, _ = self._inertia_world(kin, mods)
+        # velocities in the local (inertial) frame: R^T v
+        Rt = R.transpose(-1, -2)
+        lv = (Rt @ v[..., None])[..., 0]
+        lw = (Rt @ w[..., None])[..., 0]
+        valid = (mass > 1e-12).to(q.dtype)[..., None]
+        safe_mass = torch.clamp_min(mass, 1e-12)[..., None]
+        diff = torch.sum(inertia, -1, keepdim=True) - 2.0 * inertia
+        box = torch.sqrt(torch.clamp_min(diff, 1e-15) / safe_mass * 6.0)
+        lfrc_lin = torch.zeros_like(lv)
+        lfrc_ang = torch.zeros_like(lw)
+        if m.viscosity > 0.0:
+            diam = torch.mean(box, -1, keepdim=True)
+            lfrc_ang = lfrc_ang - np.pi * diam ** 3 * m.viscosity * lw
+            lfrc_lin = lfrc_lin - 3.0 * np.pi * diam * m.viscosity * lv
+        if m.density > 0.0:
+            box1 = torch.roll(box, -1, dims=-1)         # box[(i+1)%3]
+            box2 = torch.roll(box, -2, dims=-1)         # box[(i+2)%3]
+            lfrc_lin = lfrc_lin - (0.5 * m.density * box1 * box2
+                                   * torch.abs(lv) * lv)
+            lfrc_ang = lfrc_ang - (m.density * box * (box1 ** 4 + box2 ** 4)
+                                   / 64.0 * torch.abs(lw) * lw)
+        force = (R @ lfrc_lin[..., None])[..., 0] * valid
+        torque = (R @ lfrc_ang[..., None])[..., 0] * valid
+        return (torch.einsum("...biv,...bi->...v", Jp, force)
+                + torch.einsum("...biv,...bi->...v", Jr, torque))
+
+    def _friction(self, mods):
+        """The friction coefficient, times the task's multiplier where
+        given, broadcastable against per-contact (..., nc) tensors."""
+        friction = self._phys(mods, "friction", float(self.model.friction))
+        if torch.is_tensor(friction) and friction.dim():
+            friction = friction[..., None]
+        return friction
+
+    def _pair_terms(self, q, qd, mods=None, kin=None):
+        """Sphere-sphere contact pairs (the manipulation scenes): the
+        ground contact's penalty spring-damper and cone-clamped friction
+        along the centre line of the two spheres. Returns (tau (..., nv),
+        J_rel (..., npair, 3, nv) = J_a - J_b, C (..., npair, 3, 3), K
+        (..., npair, 3, 3)), the implicit coefficients split as C = ct (I -
+        nn^T) + cn nn^T and K = kn nn^T."""
+        c = self.consts(q.dtype, q.device)
+        g = self._generic_consts(q.dtype, q.device)
+        if kin is None:
+            kin = self.fk(q)
+        ia, ib = g["pair_a"], g["pair_b"]
+        points = self._contact_points(kin)
+        pa, pb = points[..., ia, :], points[..., ib, :]
+        J = (self._point_jacobian(kin, pa, g["pair_anc_a"])
+             - self._point_jacobian(kin, pb, g["pair_anc_b"]))
+        d = pa - pb
+        dist = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)
+        n = d / dist[..., None]
+        radius = c["con_radius"]
+        phi = dist - (radius[ia] + radius[ib])
+        in_contact = (phi < 0.0).to(q.dtype)
+        vel = (J @ qd[..., None, :, None])[..., 0]     # (..., npair, 3)
+        vn = torch.sum(vel * n, dim=-1)
+        fn = (self.contact_stiffness * (-phi)
+              - self.contact_damping * vn)
+        fn = torch.clamp_min(fn, 0.0) * in_contact
+        vt = vel - vn[..., None] * n
+        vt_norm = torch.sqrt(torch.sum(vt * vt, dim=-1) + 1e-8)
+        ct_eff = torch.minimum(
+            torch.full_like(fn, self.contact_tangential_damping),
+            self._friction(mods) * fn / vt_norm) * in_contact
+        force = fn[..., None] * n - ct_eff[..., None] * vt   # on sphere a
+        tau = torch.einsum("...civ,...ci->...v", J, force)
+        active = in_contact * (fn > 0.0).to(q.dtype)
+        nn = n[..., :, None] * n[..., None, :]
+        C = (ct_eff[..., None, None] * (g["eye3"] - nn)
+             + (self.contact_damping * active)[..., None, None] * nn)
+        K = (self.contact_stiffness * active)[..., None, None] * nn
+        return tau, J, C, K
+
+    def _limit_terms(self, q, qd):
+        """Joint-limit penalty torque and the per-dof implicit (c, k)
+        active at this state (diagonal in dof space)."""
+        g = self._generic_consts(q.dtype, q.device)
+        below = torch.clamp_max(q - g["lim_lo"], 0.0)
+        above = torch.clamp_min(q - g["lim_hi"], 0.0)
+        viol = below + above
+        active = (torch.abs(viol) > 0).to(q.dtype) * g["limited"]
+        tau = (-self.limit_stiffness * viol * g["limited"]
+               - self.limit_damping * qd * active)
+        return tau, self.limit_damping * active, self.limit_stiffness * active
+
+    def substep(self, q, qd, tau_act, h, mods=None):
+        """One semi-implicit Euler substep of (..., nv) states: the
+        kinematics once, shared by the mass matrix, the RNEA bias, fluid,
+        ground contacts and pairs; joint damping, springs, active limits
+        and the contact spring-dampers integrate implicitly through the
+        (M + hC + h^2 K) solve, Tikhonov-regularized by ``solve_reg``
+        times the mean of diag(M); the velocities are clipped to
+        ``max_qvel``. ``h``: the substep, a 0-dim tensor of the state's
+        dtype."""
+        m = self.model
+        g = self._generic_consts(q.dtype, q.device)
+        damping = self._phys(mods, "dof_damping", g["damping"])
+        stiffness, springref = g["stiffness"], g["springref"]
+
+        kin = self.fk(q)
+        M = self._mass_from_kin(kin, mods)
+        tau_lim, c_lim, k_lim = self._limit_terms(q, qd)
+        tau = (tau_act
+               - self.rnea_bias(q, qd, mods, kin=kin)
+               + self.fluid_torque(q, qd, mods, kin=kin)
+               + tau_lim
+               - stiffness * (q - springref)
+               - damping * qd)
+        # diagonal implicit terms: joint damping (MuJoCo's Euler), joint
+        # springs, active limit spring-dampers
+        diag_cd = (h * (damping + c_lim)
+                   + h * h * (k_lim + stiffness))
+        # the RHS mate of the h^2 K term of the implicit stiffness forces
+        tau = tau - h * (k_lim + stiffness) * qd
+        A_con = 0.0
+        if len(m.con_body):
+            tau_c, _, J, cn, ct, kn = self._contact_terms(q, qd, mods, kin)
+            tau = tau + tau_c
+            # implicit contact spring-dampers: h J^T C J + h^2 Jn^T K Jn
+            coef = torch.stack([h * ct, h * ct, h * cn + h * h * kn], dim=-1)
+            A_con = torch.einsum("...civ,...ciw->...vw",
+                                 J * coef[..., None], J)
+            Jz = J[..., 2, :]                            # (..., nc, nv)
+            vz = (Jz @ qd[..., None])[..., 0]
+            tau = tau - h * torch.einsum("...cv,...c->...v", Jz, kn * vz)
+        if len(m.pair_a):
+            tau_p, Jp_, Cp, Kp = self._pair_terms(q, qd, mods, kin)
+            tau = tau + tau_p
+            A_con = A_con + torch.einsum("...civ,...ciw->...vw", Jp_,
+                                         (h * Cp + h * h * Kp) @ Jp_)
+            KJqd = Kp @ (Jp_ @ qd[..., None, :, None])   # (..., np, 3, 1)
+            tau = tau - h * torch.einsum("...civ,...ci->...v", Jp_,
+                                         KJqd[..., 0])
+        reg = self.solve_reg * (torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+                                / m.nv)
+        # SPD up to the gimbal-lock singularity of Euler free roots, where
+        # the scale-aware Tikhonov term keeps the Cholesky finite
+        A = (M + torch.diag_embed(diag_cd) + A_con
+             + reg[..., None, None] * g["eye_nv"])
+        if m.nv <= 16:
+            qdd = chol_solve_unrolled(A, tau)
+        else:
+            qdd = chol_solve_cols(A, tau)
+        qd_new = torch.clamp(qd + h * qdd, -self.max_qvel, self.max_qvel)
+        return q + h * qd_new, qd_new
+
+    def generic_chain(self, q, qd, tau, n_steps, mods=None):
+        """``n_steps`` calls of ``substep`` from (..., nv) states under
+        the actuation ``tau``, on the tensors' device and in their dtype,
+        counted in ``Engine.generic_substeps``: the generic route's
+        counterpart of one K2/K3 call."""
+        h = self._generic_consts(q.dtype, q.device)["h"]
+        with full_float32(q.device):
+            for _ in range(n_steps):
+                q, qd = self.substep(q, qd, tau, h, mods)
+        Engine.generic_substeps += n_steps
+        return q, qd
+
+    def generic_step(self, q, qd, ctrl, frame_skip, mods=None):
+        """``step`` by the generic route, for any body and mod keys."""
+        return self.generic_chain(q, qd, self.actuation(ctrl),
+                                  frame_skip * self.n_substeps, mods)

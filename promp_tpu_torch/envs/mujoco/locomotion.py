@@ -1,10 +1,11 @@
 """Locomotion meta-envs on the port's rigid-body engine (port of
-promp_tpu/envs/mujoco/locomotion.py: the shared machinery, the HalfCheetah
-and Walker2d envs and the Hopper base).
+promp_tpu/envs/mujoco/locomotion.py: the shared machinery, the HalfCheetah,
+Walker2d and Swimmer envs and the Hopper base).
 
 Task distributions, rewards, observations, reset noise and termination
 rules mirror the JAX package line for line; the physics runs through
-``Engine.step`` (K2 on the card, K3 where the task gives physics mods).
+``Engine.step`` (K2 on the card, K3 where the task gives physics mods, the
+generic substep for the swimmer's fluid).
 Envs follow the port's batched protocol (envs/base.py): every method works
 on any leading batch shape, and a task carries that batch shape in front.
 """
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from promp_tpu_torch.envs.base import (Box, TaskEnv, register_env,
-                                       task_batch_shape, task_leaf)
+                                       state_dtype, task_batch_shape,
+                                       task_leaf)
 from promp_tpu_torch.envs.mujoco.engine import Engine
 from promp_tpu_torch.envs.mujoco.model import get_model
 
@@ -70,14 +72,16 @@ class LocomotionEnv(TaskEnv):
         qvel_noise) for "uniform". ``draw``, if given, is the pair of
         (..., nv) tensors (the qpos noise, the qvel draw): the qvel draw is
         the N(0, 1) draw before its scaling for "normal", the qvel noise
-        itself for "uniform"."""
+        itself for "uniform". The state takes the draw's dtype, or else a
+        floating task's (float64 tasks give a float64 state), or float32."""
         state = self._reset_state(task, generator, draw)
         return state, self._obs(state, task)
 
     def _reset_state(self, task, generator, draw):
         m = self.model
         shape = task_batch_shape(task, self.task_event_ndim) + (m.nv,)
-        kw = dict(dtype=torch.float32, device=task_leaf(task).device)
+        kw = dict(dtype=state_dtype(task, draw),
+                  device=task_leaf(task).device)
         if draw is None:
             u = torch.rand(shape, generator=generator, **kw)
             qpos_draw = u * (2 * self.qpos_noise) - self.qpos_noise
@@ -248,6 +252,58 @@ class Walker2DRandDirecEnv(Walker2dBase):
         reward = task * forward_vel + 1.0 - 1e-3 * _ctrl_sq(action)
         return (state, self._obs(state, task), reward, self._done(state),
                 dict(forward_vel=forward_vel))
+
+
+# ------------------------------------------------------------------- Swimmer
+@register_env("SwimmerRandVelEnv")
+@dataclass(frozen=True)
+class SwimmerRandVelEnv(LocomotionEnv):
+    """Task vel ~ U(0.1, 0.2); reward = |v - v*| - 1e-4 ||a||^2, the run
+    term the reference's raw gap, not negated (a reference quirk the JAX
+    package keeps); obs = [qpos[2:], qvel]; reset noise U(-.1, .1) on
+    both; frame_skip 4; never done. The swimmer's fluid medium takes the
+    engine's generic route."""
+
+    model_name: str = "swimmer"
+    frame_skip: int = 4
+    never_done: bool = True
+    qpos_noise: float = 0.1
+    qvel_noise: float = 0.1
+    qvel_noise_kind: str = "uniform"
+    diagnostics_keys = ("reward_fwd", "reward_ctrl")
+
+    def sample_tasks(self, generator, n_tasks, device):
+        return torch.rand((n_tasks,), generator=generator,
+                          device=device) * 0.1 + 0.1
+
+    def _obs_dim(self):
+        return 2 * self.model.nv - 2
+
+    def _obs(self, state, task=None):
+        return torch.cat([state["q"][..., 2:], state["qd"]], dim=-1)
+
+    def step(self, state, action, task):
+        state, forward_vel = self._forward(state, action, task)
+        reward_fwd = torch.abs(forward_vel - task)
+        reward_ctrl = -1e-4 * _ctrl_sq(action)
+        reward = reward_fwd + reward_ctrl
+        info = dict(reward_fwd=reward_fwd, reward_ctrl=reward_ctrl)
+        return (state, self._obs(state, task), reward,
+                torch.zeros(reward.shape, dtype=torch.bool,
+                            device=reward.device), info)
+
+    def diagnostics(self, samples):
+        """'ForwardProgress' is the last-minus-first value of observation
+        column -3 of each path (a reference quirk: that column is
+        qvel[2]), with its Average/Max/Min/Std across paths."""
+        out = super().diagnostics(samples)
+        obs = samples["observations"]                    # (tasks, envs, T, d)
+        progs = obs[..., -1, -3] - obs[..., 0, -3]
+        out["AverageForwardProgress"] = torch.mean(progs)
+        out["MaxForwardProgress"] = torch.max(progs)
+        out["MinForwardProgress"] = torch.min(progs)
+        out["StdForwardProgress"] = torch.std(progs, correction=0)
+        return out
 
 
 # -------------------------------------------------------------------- Hopper

@@ -116,6 +116,31 @@ class ChainModel:
             self.__dict__["_ancestor_mask"] = mask
         return mask
 
+    def dof_ancestor_strict(self):
+        """(nv, nv) 1.0 where dof k is a strict ancestor of dof j: k is
+        applied before j on j's kinematic chain (the dofs of ancestor
+        bodies, and the earlier dofs of j's own body, which apply in
+        declaration order). The RNEA bias pass reads it: the motion
+        subspace of joint j is carried by the frame these dofs build.
+        Computed once a model (a read-only array)."""
+        mask = self.__dict__.get("_dof_ancestor_strict")
+        if mask is None:
+            body_anc = self.ancestor_mask()
+            mask = np.zeros((self.nv, self.nv), np.float32)
+            for j in range(self.nv):
+                b = self.jnt_body[j]
+                parent = self.body_parent[b]
+                for k in range(self.nv):
+                    kb = self.jnt_body[k]
+                    if kb == b:
+                        if k < j:
+                            mask[j, k] = 1.0
+                    elif parent >= 0 and body_anc[parent, k]:
+                        mask[j, k] = 1.0
+            mask.setflags(write=False)
+            self.__dict__["_dof_ancestor_strict"] = mask
+        return mask
+
 
 _ARRAY_FIELDS = [
     "body_pos", "body_quat", "body_mass", "body_inertia", "body_ipos",

@@ -60,22 +60,22 @@ class NormalizedEnv(TaskEnv):
     def sample_tasks(self, generator, n_tasks, device):
         return self.env.sample_tasks(generator, n_tasks, device)
 
-    def _wrap_state(self, inner_state, batch_shape, device):
+    def _wrap_state(self, inner_state, obs):
+        """The running statistics in the observations' dtype."""
         if not self._stats:
             return inner_state
-        obs_shape = tuple(batch_shape) + tuple(
-            self.env.observation_space.shape)
+        kw = dict(dtype=obs.dtype, device=obs.device)
         return {
             "inner": inner_state,
-            "obs_mean": torch.zeros(obs_shape, device=device),
-            "obs_var": torch.ones(obs_shape, device=device),
-            "rew_mean": torch.zeros(batch_shape, device=device),
-            "rew_var": torch.ones(batch_shape, device=device),
+            "obs_mean": torch.zeros(obs.shape, **kw),
+            "obs_var": torch.ones(obs.shape, **kw),
+            "rew_mean": torch.zeros(obs.shape[:-1], **kw),
+            "rew_var": torch.ones(obs.shape[:-1], **kw),
         }
 
     def reset(self, task, generator, draw=None):
         inner_state, obs = self.env.reset(task, generator, draw)
-        state = self._wrap_state(inner_state, obs.shape[:-1], obs.device)
+        state = self._wrap_state(inner_state, obs)
         if self.normalize_obs:
             state, obs = self._norm_obs(state, obs)
         return state, obs
@@ -94,8 +94,8 @@ class NormalizedEnv(TaskEnv):
     def scale_action(self, action):
         """The policy's action in +-normalization_scale mapped affinely to
         the wrapped env's bounds, and clipped to them."""
-        lb = self.env.action_space.low_array(action.device)
-        ub = self.env.action_space.high_array(action.device)
+        lb = self.env.action_space.low_array(action.device, action.dtype)
+        ub = self.env.action_space.high_array(action.device, action.dtype)
         scale = self.normalization_scale
         scaled = lb + (action + scale) * (ub - lb) / (2.0 * scale)
         return torch.minimum(torch.maximum(scaled, lb), ub)

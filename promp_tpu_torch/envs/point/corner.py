@@ -46,7 +46,7 @@ class MetaPointEnvCorner(TaskEnv):
     def reset(self, task, generator, draw=None):
         if draw is None:
             draw = torch.rand(task.shape, generator=generator,
-                              dtype=torch.float32, device=task.device)
+                              dtype=task.dtype, device=task.device)
             draw = draw * 0.4 - 0.2
         return draw, draw
 
@@ -60,7 +60,8 @@ class MetaPointEnvCorner(TaskEnv):
             reward = -goal_distance ** 2
         else:
             dist_from_start = torch.sum(torch.abs(new), dim=-1)
-            corners = torch.as_tensor(CORNERS, device=new.device)
+            corners = torch.as_tensor(CORNERS, dtype=new.dtype,
+                                      device=new.device)
             corner_dists = _norm(new[..., None, :] - corners)
             # the goal distance takes the same norm form as corner_dists, so
             # the nearest-corner tie test at the goal corner is exact

@@ -59,7 +59,7 @@ class Adam:
         b1, b2 = self.beta1, self.beta2
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
-        c = count.to(torch.float32)
+        c = count.to(tree_leaves(grads)[0].dtype)
         lr_t = self.learning_rate * torch.sqrt(1 - b2 ** c) / (1 - b1 ** c)
         new_params = tree_map(
             lambda p, m, v: p - lr_t * m / (torch.sqrt(v) + self.eps),

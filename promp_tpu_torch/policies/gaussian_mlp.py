@@ -48,22 +48,23 @@ class GaussianMLPPolicy:
     def init_log_std(self):
         return math.log(self.init_std)
 
-    def init(self, generator, device):
-        """Xavier (glorot-uniform) kernels, zero biases, constant log_std."""
+    def init(self, generator, device, dtype=torch.float32):
+        """Xavier (glorot-uniform) kernels, zero biases, constant log_std,
+        in ``dtype``."""
         sizes = (self.obs_dim,) + tuple(self.hidden_sizes) + (self.action_dim,)
         n_layers = len(sizes) - 1
         params = {}
         for i in range(n_layers):
             name = "output" if i == n_layers - 1 else f"hidden_{i}"
             limit = math.sqrt(6.0 / (sizes[i] + sizes[i + 1]))
-            kernel = torch.empty((sizes[i], sizes[i + 1]), dtype=torch.float32,
+            kernel = torch.empty((sizes[i], sizes[i + 1]), dtype=dtype,
                                  device=device)
             kernel.uniform_(-limit, limit, generator=generator)
             params[f"mean_network/{name}/kernel"] = kernel
             params[f"mean_network/{name}/bias"] = torch.zeros(
-                (sizes[i + 1],), dtype=torch.float32, device=device)
+                (sizes[i + 1],), dtype=dtype, device=device)
         params["log_std_network/log_std_var"] = torch.full(
-            (1, self.action_dim), self.init_log_std, dtype=torch.float32,
+            (1, self.action_dim), self.init_log_std, dtype=dtype,
             device=device)
         return params
 

@@ -32,13 +32,13 @@ from promp_tpu_torch.ops.discounting import (
 from promp_tpu_torch.optimizers.adam import tree_map
 
 
-def prefix_mask(dones):
+def prefix_mask(dones, dtype=torch.float32):
     """1.0 through the first done along the last axis (inclusive), 0.0
-    after."""
-    d = dones.to(torch.float32)
+    after, in ``dtype``."""
+    d = dones.to(dtype)
     prior = torch.cat([torch.zeros_like(d[..., :1]),
                        torch.cumsum(d, dim=-1)[..., :-1]], dim=-1)
-    return (prior < 0.5).to(torch.float32)
+    return (prior < 0.5).to(dtype)
 
 
 @dataclass(frozen=True)
@@ -82,7 +82,7 @@ class DiceSampleProcessor:
         dones = traj["dones"]
         timesteps = traj["timesteps"]
         observations = traj["observations"]
-        mask = prefix_mask(dones)
+        mask = prefix_mask(dones, rewards.dtype)
         mask_b = mask[..., None]
 
         discounted = rewards * self.discount ** timesteps.to(rewards.dtype) \
@@ -122,7 +122,7 @@ class DiceSampleProcessor:
             AverageReturn=torch.mean(path_returns),
             AverageDiscountedReturn=torch.mean(torch.sum(discounted, dim=-1)),
             NumTrajs=torch.tensor(float(path_returns.numel()),
-                                  device=rewards.device),
+                                  dtype=rewards.dtype, device=rewards.device),
             StdReturn=torch.std(path_returns, correction=0),
             MaxReturn=torch.max(path_returns),
             MinReturn=torch.min(path_returns),

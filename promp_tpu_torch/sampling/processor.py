@@ -85,7 +85,7 @@ class SampleProcessor:
         """Path statistics from segment masks, as 0-dim tensors."""
         seg_sums, seg_ends = segment_returns(
             traj["rewards"], traj["timesteps"], traj["dones"])
-        starts = segment_starts(traj["timesteps"])
+        starts = segment_starts(traj["timesteps"], returns.dtype)
         at_end = seg_ends > 0
         n_ends = torch.clamp(torch.sum(seg_ends), min=1.0)
         undisc = torch.sum(seg_sums) / n_ends

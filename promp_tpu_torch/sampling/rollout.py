@@ -100,9 +100,9 @@ def _stack_time(steps):
     return torch.stack(steps, dim=2)
 
 
-def segment_starts(timesteps):
-    """0/1 mask of positions that begin an episode segment."""
-    return (timesteps == 0).to(torch.float32)
+def segment_starts(timesteps, dtype=torch.float32):
+    """0/1 mask in ``dtype`` of positions that begin an episode segment."""
+    return (timesteps == 0).to(dtype)
 
 
 def segment_returns(rewards, timesteps, dones):
@@ -112,7 +112,7 @@ def segment_returns(rewards, timesteps, dones):
     segment's total reward at its final position (a done or the stream's
     end), and ``seg_mask`` marks those positions.
     """
-    ends = torch.cat([dones[..., :-1].to(torch.float32),
+    ends = torch.cat([dones[..., :-1].to(rewards.dtype),
                       torch.ones_like(rewards[..., :1])], dim=-1)
     csum = torch.cumsum(rewards, dim=-1)
     start_mask = timesteps == 0

@@ -11,14 +11,18 @@ import torch
 
 
 def from_numpy_params(params, device):
-    """dict[str, np.ndarray] -> dict[str, float32 Tensor] on ``device``;
-    nested dicts are converted recursively."""
+    """dict[str, np.ndarray] -> dict[str, Tensor] on ``device``: a float64
+    array stays float64 (the float64 mode, as JAX params under
+    ``jax.enable_x64``), anything else becomes float32; nested dicts are
+    converted recursively."""
     out = {}
     for k, v in params.items():
         if isinstance(v, dict):
             out[k] = from_numpy_params(v, device)
         else:
-            out[k] = torch.from_numpy(np.array(v, np.float32)).to(device)
+            v = np.asarray(v)
+            dtype = np.float64 if v.dtype == np.float64 else np.float32
+            out[k] = torch.from_numpy(np.array(v, dtype)).to(device)
     return out
 
 

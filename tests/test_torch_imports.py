@@ -44,7 +44,9 @@ def test_sources_found():
                    "ops/baseline_classes.py", "utils/checkpoints.py",
                    "utils/native.py", "utils/logger.py", "utils/misc.py",
                    "experiment_utils/run_sweep.py", "envs/point/basic.py",
-                   "envs/point/walls.py"):
+                   "envs/point/walls.py", "sampling/compat_sampler.py",
+                   "sampling/render.py", "ops/smallsolve.py",
+                   "envs/mujoco/scenes.py", "envs/sawyer.py"):
         assert f"promp_tpu_torch/{module}" in SOURCES, module
 
 

@@ -90,19 +90,28 @@ def test_step_clips_ctrl_and_keeps_the_batch_shape():
 
 
 def test_step_refuses_mods_and_bodies_it_does_not_cover():
-    # K3 takes the four rand-params keys; any other mod key raises
+    # K2/K3 take the four rand-params keys and spatial_ok bodies only: their
+    # wrapper refuses any other mod key, and the spatial substep the
+    # swimmer; Engine.step sends both to the generic substep instead
+    from promp_tpu_torch.envs.mujoco.spatial import make_spatial_substep
+    from promp_tpu_torch.ops.substep_kernel import substep_chain
     eng = Engine(tmodel.get_model("half_cheetah"))
-    q = torch.zeros((1, 9))
-    with pytest.raises(NotImplementedError,
-                       match="'half_cheetah'.*mod key 'geom_friction'"):
-        eng.step(q, q, torch.zeros((1, 6)), 5,
-                 mods={"body_mass": torch.ones((1, 7)),
-                       "geom_friction": torch.ones((1, 9, 3))})
+    with pytest.raises(NotImplementedError, match="'geom_friction'"):
+        substep_chain(eng, 5, ("body_mass", "geom_friction"))
     swim = Engine(tmodel.get_model("swimmer"))
+    with pytest.raises(ValueError, match="not spatial_ok"):
+        make_spatial_substep(swim)
+    q = torch.zeros((1, 9))
+    before = Engine.generic_substeps
+    q2, _ = eng.step(q, q, torch.zeros((1, 6)), 5,
+                     mods={"body_mass": torch.ones((1, 7)),
+                           "geom_friction": torch.ones((1, 9, 3))})
+    assert "_chain_cache" not in eng.__dict__
     nv, nu = swim.model.nv, swim.model.nu
-    with pytest.raises(NotImplementedError, match="'swimmer'.*spatial_ok"):
-        swim.step(torch.zeros((1, nv)), torch.zeros((1, nv)),
-                  torch.zeros((1, nu)), 4)
+    q3, _ = swim.step(torch.zeros((1, nv)), torch.zeros((1, nv)),
+                      torch.zeros((1, nu)), 4)
+    assert Engine.generic_substeps - before == 5 + 4
+    assert torch.isfinite(q2).all() and torch.isfinite(q3).all()
 
 
 def test_registry_and_spaces():
